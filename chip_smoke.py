@@ -1,4 +1,5 @@
-"""Drive the torch port's serving path once on one NVIDIA GPU, and check it.
+"""Drive the torch port's serving and training paths once on one NVIDIA
+GPU, and check them.
 
     python3 chip_smoke.py [--seed N]
 
@@ -17,6 +18,19 @@ the script exits non-zero:
    checked against the same predictor fed windows from the plain STFT on
    the same card, and the STFT kernel must have launched during the
    waveform requests;
+4b. training: a (16, 2^20) waveform .npy with known kinds (one per
+   window) through the port's `workflow.load_data` (the STFT kernel must
+   launch; windows within atol 2e-3 of the plain STFT on the card) ->
+   normalize -> AEC(), 3 epochs, batch 64, lr 1e-3 -> k-means (100
+   restarts) and GMM init on all 41,936 latents -> DEC(5), 2 epochs,
+   batch 64, lr 5e-4, gamma 1e-3, tol 3e-3; the DEC labels must reach NMI
+   >= 0.90 against the kinds. The same DEC runs again with tol 0, so both
+   epochs and all three refreshes run: the refresh iterations must be the
+   schedule's, and its labels too must reach NMI >= 0.90; refreshes and
+   steps are timed apart. One AEC epoch and one DEC segment with a
+   refresh on 2,048 windows must give the same losses on the CPU and the
+   card within rtol 1e-3. Two more AEC epochs, one plain and one under
+   torch.profiler, give the device's busy time against each wall;
 5. times: kernel and plain STFT at (16, 2^20) with CUDA events, and the
    p50 latency of each waveform request.
 
@@ -82,9 +96,11 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def synthetic_waveform(shape, gen, device, kinds=None) -> torch.Tensor:
+def synthetic_waveform(shape, gen, device, kinds=None,
+                       amplitude=None) -> torch.Tensor:
     """Five kinds of 400-sample stretches (one DEC window each): a tone
-    at a kind-specific frequency and amplitude over unit noise. `kinds`
+    at a kind-specific frequency over unit noise, of amplitude
+    10^(kind/2) or, when given, `amplitude` for every kind. `kinds`
     (channels, stretches) picks them; random by default."""
     c, t = shape
     if kinds is None:
@@ -93,7 +109,8 @@ def synthetic_waveform(shape, gen, device, kinds=None) -> torch.Tensor:
     kind = kinds.repeat_interleave(400, dim=1)[:, :t]
     n = torch.arange(t, device=device, dtype=torch.float32)
     freq = 0.03 + 0.09 * kind.to(torch.float32)
-    amp = 10.0 ** (kind.to(torch.float32) / 2.0)
+    amp = (10.0 ** (kind.to(torch.float32) / 2.0) if amplitude is None
+           else amplitude)
     noise = torch.randn((c, t), generator=gen, device=device)
     return amp * torch.sin(2 * np.pi * freq * n) + noise
 
@@ -165,6 +182,309 @@ def check_answer(name: str, got: dict, want: dict, n: int) -> None:
           flush=True)
     check(q_err <= Q_ATOL, f"{name} q err {q_err}")
     check(agree, f"{name} labels")
+
+
+def nmi(a: np.ndarray, b: np.ndarray) -> float:
+    """Normalized mutual information, arithmetic-mean normalization (what
+    sklearn's normalized_mutual_info_score computes by default)."""
+    a = np.unique(a, return_inverse=True)[1]
+    b = np.unique(b, return_inverse=True)[1]
+    joint = np.zeros((a.max() + 1, b.max() + 1))
+    np.add.at(joint, (a, b), 1.0)
+    joint /= joint.sum()
+    pa, pb = joint.sum(1), joint.sum(0)
+    nz = joint > 0
+    mi = float((joint[nz] * np.log(joint[nz] / np.outer(pa, pb)[nz])).sum())
+    ha = -float((pa[pa > 0] * np.log(pa[pa > 0])).sum())
+    hb = -float((pb[pb > 0] * np.log(pb[pb > 0])).sum())
+    return 1.0 if ha + hb == 0 else mi / ((ha + hb) / 2)
+
+
+def cpu_against_card(sd_aec, sd_dec, x, labels, centroids) -> float:
+    """One AEC epoch and one DEC epoch with a refresh half-way from the
+    same weights on the CPU and on the card; returns the largest relative
+    gap of their losses."""
+    from spectrogram_cube_clustering_tpu_torch import models, train
+
+    hist, deltas = {}, {}
+    split = len(x) * 3 // 4
+    for dev in ("cpu", "cuda"):
+        xd = x.to(dev)
+        aec = models.AEC(device=dev)
+        aec.load_state_dict(sd_aec)
+        out = train.train_aec(
+            aec, train.create_train_state(aec, 1e-3),
+            train.make_batched_data(xd[:split], 64),
+            train.make_batched_data(xd[split:], 64),
+            train.AECConfig(n_epochs=1))
+        dec = models.DEC(5, device=dev)
+        dec.load_state_dict(sd_dec)
+        data = train.make_batched_data(xd, 64)
+        seg = train.train_dec(
+            dec, train.create_train_state(dec, 5e-4), data,
+            train.DECConfig(n_clusters=5, n_epochs=1, init="load", tol=0.0,
+                            update_interval=data.n_batches // 2),
+            initial=(labels, centroids))
+        hist[dev] = (out["history"]["train"] + out["history"]["validation"]
+                     + seg["history"]["total"])
+        deltas[dev] = seg["deltas"]["delta"]
+    want, got = np.asarray(hist["cpu"]), np.asarray(hist["cuda"])
+    gaps = np.abs(got - want) / np.abs(want)
+    print(f"cpu vs card: AEC epoch train/val {hist['cpu'][:2]} vs "
+          f"{hist['cuda'][:2]}; DEC refresh delta {deltas['cpu']} vs "
+          f"{deltas['cuda']}, last running loss {hist['cpu'][-1]:.6e} vs "
+          f"{hist['cuda'][-1]:.6e}; max rel gap {float(gaps.max()):.3e} "
+          f"over {len(gaps)} losses", flush=True)
+    check(len(deltas["cpu"]) == len(deltas["cuda"]) >= 1,
+          "the same DEC refreshes on each side")
+    # one label flipped by a rounding of q (ROADMAP Queue 3) is 1/M
+    check(all(abs(a - b) <= 1.0 / len(x) + 1e-9
+              for a, b in zip(deltas["cpu"], deltas["cuda"])),
+          f"DEC deltas {deltas}")
+    return float(gaps.max())
+
+
+def phase_training(device, gen, card, cuda_stft, spectrogram_plain,
+                   seed: int) -> int:
+    """The training slice at the model's full width from a (16, 2^20)
+    waveform .npy: load_data (STFT kernel) -> normalize -> AEC pretrain ->
+    k-means/GMM init -> DEC refine, then the CPU against the card. Returns
+    the STFT launches of the training path."""
+    import tempfile
+    import types
+
+    from spectrogram_cube_clustering_tpu_torch import cluster, models, train
+    from spectrogram_cube_clustering_tpu_torch.data import train_val_split
+    from spectrogram_cube_clustering_tpu_torch.workflow import (
+        load_data,
+        make_model,
+    )
+    from spectrogram_cube_clustering_tpu_torch.workflow.train import (
+        _normalize,
+    )
+
+    c, t = BIG
+    # one amplitude for every kind: a window's last frame reaches 100
+    # samples into the next stretch, and a neighbour 100x louder would
+    # decide the window once it is normalized
+    kinds = torch.randint(0, 5, (c, -(-t // 400)), generator=gen,
+                          device=device)
+    wave = synthetic_waveform(BIG, gen, device, kinds=kinds, amplitude=10.0)
+    per_channel = ((t - 200) // 100 + 1) // 4
+    truth = kinds[:, :per_channel].reshape(-1).cpu().numpy()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/wave.npy"
+        np.save(path, wave.cpu().numpy())
+
+        def config(model):
+            return types.SimpleNamespace(
+                model=model, mode="train", datafiletype="waveform",
+                fname_dataset=path, transform="sample_norm_cent",
+                device=device, n_clusters=5)
+
+        # 1. windows through the kernel
+        cuda_stft.LAUNCHES = 0  # the training path's run starts here
+        cfg = config("AEC")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tra, val = load_data(cfg)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        check(cuda_stft.LAUNCHES >= 1, "STFT kernel on the training path")
+        check(tra.is_cuda and val.is_cuda, "windows on the card")
+        spec = spectrogram_plain(wave)
+        plain = spec[:, : per_channel * 4].reshape(-1, 4, spec.shape[-1], 1)
+        idx_tra, idx_val = (torch.from_numpy(i).to(device)
+                            for i in train_val_split(len(plain)))
+        win_err = max(float((tra - plain[idx_tra]).abs().max()),
+                      float((val - plain[idx_val]).abs().max()))
+        print(f"training windows: {len(tra)} train + {len(val)} val = "
+              f"{len(plain)}, load_data {load_s:.3f} s on {card}, "
+              f"max_abs_err vs plain STFT {win_err:.3e}", flush=True)
+        check(len(tra) + len(val) == 41_936, "41,936 windows")
+        check(win_err <= STFT_ATOL, f"training windows err {win_err}")
+        tra, val = _normalize(cfg, tra), _normalize(cfg, val)
+
+        # 2. AEC pretrain
+        aec = make_model(cfg, generator=torch.Generator().manual_seed(seed))
+        sd_aec0 = train.params_copy(aec)
+        tra_b = train.make_batched_data(tra, 64)
+        val_b = train.make_batched_data(val, 64)
+        marks = [time.perf_counter()]
+
+        def mark(tag, value, epoch):
+            if tag == "Validation MSE":
+                torch.cuda.synchronize()
+                marks.append(time.perf_counter())
+
+        out = train.train_aec(aec, train.create_train_state(aec, 1e-3),
+                              tra_b, val_b, train.AECConfig(n_epochs=3),
+                              log_scalar=mark)
+        hist = out["history"]
+        aec_rates = [len(tra) / (b - a) for a, b in zip(marks, marks[1:])]
+        for e, tr, va, r in zip(hist["epoch"], hist["train"],
+                                hist["validation"], aec_rates):
+            print(f"AEC epoch {e}: train {tr:.6e} val {va:.6e}, "
+                  f"{r:.1f} train samples/s (epoch wall incl. validation) "
+                  f"on {card}", flush=True)
+        check(all(np.isfinite(hist["train"] + hist["validation"])),
+              "AEC losses finite")
+        check(hist["train"][-1] < hist["train"][0], "AEC train loss falls")
+        aec.load_state_dict(out["final_params"])
+
+        # 3. cluster init on the latents of every window
+        cfg = config("DEC")
+        x, _ = load_data(cfg)
+        x = _normalize(cfg, x)
+        launches = cuda_stft.LAUNCHES  # ... and the STFT's part ends here
+        dec = make_model(cfg, generator=torch.Generator().manual_seed(seed))
+        models.load_encoder_decoder_from_aec(dec, aec)
+        data = train.make_batched_data(x, 64)
+        init_cfg = train.DECConfig(n_clusters=5, init="gmm",
+                                   kmeans_n_init=100, kmeans_max_iter=1000,
+                                   seed=2009)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        labels0, centroids0 = train.initialize_clusters(dec, data, init_cfg)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        _, _, z = train.full_eval(dec, data)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        km_labels, km_centers = cluster.kmeans(z, 5, n_init=100,
+                                               max_iter=1000, seed=2009)
+        torch.cuda.synchronize()
+        km_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        weights = torch.bincount(km_labels.long(), minlength=5) / len(z)
+        gmm_labels, gmm_state = cluster.gmm_em(z, weights, km_centers)
+        torch.cuda.synchronize()
+        gmm_s = time.perf_counter() - t0
+        print(f"cluster init at {tuple(z.shape)} on {card}: "
+              f"initialize_clusters(gmm) {init_s:.3f} s; alone, k-means "
+              f"(100 restarts) {km_s:.3f} s, GMM-EM {gmm_s:.3f} s "
+              f"({gmm_state.n_iter} iterations); k-means NMI vs kinds "
+              f"{nmi(truth, km_labels.cpu().numpy()):.4f}, GMM "
+              f"{nmi(truth, labels0.cpu().numpy()):.4f}, GMM alone vs "
+              f"initialize_clusters "
+              f"{nmi(gmm_labels.cpu().numpy(), labels0.cpu().numpy()):.4f}",
+              flush=True)
+
+        # 4. DEC refine
+        sd_dec0 = train.params_copy(models.replace_centroids(dec, centroids0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dec_out = train.train_dec(
+            dec, train.create_train_state(dec, 5e-4), data,
+            train.DECConfig(n_clusters=5, n_epochs=2, gamma=1e-3, tol=3e-3,
+                            init="load"),
+            initial=(labels0, centroids0))
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t0
+        rows = len(dec_out["history"]["iteration"])
+        trained = ((rows // data.n_batches) * len(x)
+                   + (rows % data.n_batches) * 64)
+        score = nmi(truth, dec_out["labels"])
+        print(f"DEC: deltas {dec_out['deltas']}, {rows} steps, "
+              f"{trained / dec_s:.1f} samples/s (train_dec wall {dec_s:.3f} s "
+              f"incl. refreshes) on {card}; stopped by tol "
+              f"{dec_out['stopped_early']}; labels NMI vs kinds {score:.4f}",
+              flush=True)
+        check(all(np.isfinite(dec_out["history"]["total"])), "DEC finite")
+        check(score >= 0.90, f"DEC labels NMI {score}")
+
+        # 4b. the same DEC with tol 0: both epochs and every refresh run
+        dec_full = models.DEC(5, device=device)
+        dec_full.load_state_dict(sd_dec0)
+        nb, bsz = data.n_batches, data.batch_size
+        interval = -(-len(x) // (2 * bsz))
+        want_iters = [e * nb + b + 1 for e in range(2) for b in range(nb)
+                      if b % interval == 0 and (e, b) != (0, 0)]
+        dec_marks = []
+
+        def dec_mark(tag, value, it):
+            # "Loss" ends a segment of steps, "delta" ends a refresh
+            if tag in ("Loss", "delta"):
+                torch.cuda.synchronize()
+                dec_marks.append((tag, it, time.perf_counter()))
+
+        torch.cuda.synchronize()
+        dec_marks.append(("start", 0, time.perf_counter()))
+        full = train.train_dec(
+            dec_full, train.create_train_state(dec_full, 5e-4), data,
+            train.DECConfig(n_clusters=5, n_epochs=2, gamma=1e-3, tol=0.0,
+                            init="load"),
+            initial=(labels0, centroids0), log_scalar=dec_mark)
+        refresh_ms = [(b[2] - a[2]) * 1e3
+                      for a, b in zip(dec_marks, dec_marks[1:])
+                      if b[0] == "delta"]
+        # segments that start right after a refresh hold steps only
+        seg_rows, seg_s = 0, 0.0
+        for a, b in zip(dec_marks, dec_marks[1:]):
+            if a[0] == "delta" and b[0] == "Loss":
+                seg_rows += sum(min(bsz, len(x) - (g % nb) * bsz)
+                                for g in range(a[1] - 1, b[1]))
+                seg_s += b[2] - a[2]
+        full_score = nmi(truth, full["labels"])
+        clust = full["history"]["clustering"]
+        print(f"DEC tol 0: deltas {full['deltas']}, "
+              f"{len(full['history']['iteration'])} steps, refreshes "
+              f"{[round(r, 3) for r in refresh_ms]} ms, steps after a "
+              f"refresh {seg_rows / seg_s:.1f} samples/s on {card}; epoch "
+              f"mean KLD {clust[nb - 1]:.6e} then {clust[-1]:.6e}; labels "
+              f"NMI vs kinds {full_score:.4f}", flush=True)
+        check(full["deltas"]["iteration"] == want_iters,
+              f"DEC refresh iterations {full['deltas']['iteration']} vs "
+              f"{want_iters}")
+        check(all(0.0 <= d <= 1.0 for d in full["deltas"]["delta"]),
+              "DEC deltas in [0, 1]")
+        check(not full["stopped_early"] and full["last_epoch"] == 2
+              and len(full["history"]["iteration"]) == 2 * nb,
+              "DEC tol 0 ran both epochs")
+        check(all(np.isfinite(full["history"]["total"])), "DEC tol 0 finite")
+        check(full_score >= 0.90, f"DEC tol 0 labels NMI {full_score}")
+
+        # 5. the CPU against the card
+        gap = cpu_against_card(
+            sd_aec0, sd_dec0, x[:2048].cpu(),
+            labels0[:2048].cpu().numpy(), centroids0.cpu().numpy())
+        check(gap <= 1e-3, f"CPU vs card losses rtol {gap}")
+
+        # 6. the device's busy time in one AEC epoch, against the wall of a
+        # plain epoch and of the profiled one (the profiler slows the host)
+        prof_aec = models.AEC(device=device)
+        prof_aec.load_state_dict(out["final_params"])
+        state = train.create_train_state(prof_aec, 1e-3)
+
+        def epoch_ms():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train.train_aec(prof_aec, state, tra_b, val_b,
+                            train.AECConfig(n_epochs=1))
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+
+        plain_wall_ms = epoch_ms()
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            wall_ms = epoch_ms()
+        # device time as the profiler's own "Self CUDA time total" counts
+        # it: device events only, without the GPU spans of annotations
+        # (Optimizer.step), which would count their kernels twice
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.is_user_annotation]
+        device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        print(f"AEC epoch on {card}: device busy {device_ms:.1f} ms (Self "
+              f"CUDA total, profiled epoch); plain epoch wall "
+              f"{plain_wall_ms:.1f} ms, share {device_ms / plain_wall_ms:.3f};"
+              f" profiled epoch wall {wall_ms:.1f} ms, share "
+              f"{device_ms / wall_ms:.3f}", flush=True)
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+            print(f"  {e.key[:60]}: {e.self_device_time_total / 1e3:.2f} ms "
+                  f"over {e.count} calls", flush=True)
+    return launches
 
 
 def main() -> int:
@@ -294,6 +614,13 @@ def main() -> int:
               == [len(want["q"]) // channels] * channels,
               f"{name} windows_per_channel")
 
+    # 4b. the training slice
+    train_launches = phase_training(device, gen, card, cuda_stft,
+                                    spectrogram_plain, args.seed)
+    print(f"STFT kernel launches: serving path {launches}, training path "
+          f"{train_launches}", flush=True)
+    check(train_launches >= 1, "STFT kernel on the training path")
+
     # 5. times
     x = torch.randn(BIG, generator=gen, device=device)
     plain = [cuda_ms(lambda: spectrogram_plain(x))]
@@ -314,7 +641,7 @@ def main() -> int:
         "route": "cuda",
         "source": "spectrogram_cube_clustering_tpu_torch/csrc/stft.cu",
         "replaces": "spectrogram_cube_clustering_tpu/ops/pallas_stft.py:86",
-        "launches": launches,
+        "launches": launches + train_launches,
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,

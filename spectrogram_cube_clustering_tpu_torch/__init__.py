@@ -10,9 +10,13 @@ package imports no jax and builds no kernel: `ops.cuda_stft` compiles
 Subpackages
 -----------
 core      : explicit devices, the float32 (no TF32) policy
-ops       : normalizers, Student-t assignment, the CUDA STFT kernel
+ops       : normalizers, Student-t assignment, losses, the CUDA STFT kernel
 signal    : waveform -> spectrogram windows
 models    : Encoder / Decoder / AEC / DEC (torch.nn)
+train     : batches on the device, Adam state, AEC pretraining, DEC refinement
+cluster   : batched k-means restarts, full-covariance GMM-EM
+data      : the seeded train/validation split
+workflow  : waveform data loading, model construction from a config
 utils     : weights from the JAX package's params and from `.pt` files
 serve     : predictors and the raw-waveform frontend
 serve_http: HTTP front end with micro-batching (`scc-serve-torch`)
@@ -21,16 +25,20 @@ serve_http: HTTP front end with micro-batching (`scc-serve-torch`)
 __version__ = "0.1.0"
 
 from spectrogram_cube_clustering_tpu_torch import (  # noqa: F401
+    cluster,
     core,
+    data,
     models,
     ops,
     serve,
     serve_http,
     signal,
+    train,
     utils,
+    workflow,
 )
 
 __all__ = [
-    "core", "models", "ops", "serve", "serve_http", "signal", "utils",
-    "__version__",
+    "cluster", "core", "data", "models", "ops", "serve", "serve_http",
+    "signal", "train", "utils", "workflow", "__version__",
 ]

@@ -35,6 +35,13 @@ def fp32_policy() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def fp32_policy_for(device: Union[str, torch.device]) -> None:
+    """`fp32_policy()` when `device` is a CUDA device: every CUDA path of
+    the port calls it before its first matmul or convolution."""
+    if torch.device(device).type == "cuda":
+        fp32_policy()
+
+
 def tf32_flags() -> dict:
     return {
         "cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,

@@ -1,0 +1,143 @@
+"""AEC pretraining loop (counterpart of the JAX package's `train/aec.py`,
+its per-epoch path; reference Cluster/models.py:761-926).
+
+- each epoch is a training pass (masked MSE, Adam) and a validation pass
+  over device-resident batches (train/layout.py); epoch losses are exact
+  means over real samples, sum(batch_loss * n_valid) / sum(mask), with
+  one host sync per epoch;
+- early stopping: strikes reset on improvement, a first epoch without one
+  counts 1, the run stops once epoch > patience and strikes > patience,
+  and the best-validation params are the final ones.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Optional
+
+import torch
+
+from spectrogram_cube_clustering_tpu_torch.train.layout import BatchedData
+from spectrogram_cube_clustering_tpu_torch.train.state import (
+    TrainState,
+    params_copy,
+)
+
+
+@dataclasses.dataclass
+class AECConfig:
+    n_epochs: int = 20
+    early_stopping: bool = True
+    patience: int = 10
+    verbose: bool = False
+
+
+def _batch_loss(model, x: torch.Tensor, mask: torch.Tensor):
+    """(masked mean-squared error over real rows, their count)."""
+    x_rec, _ = model(x)
+    d = x_rec - x
+    per = torch.mean(d * d, dim=tuple(range(1, x.dim())))
+    nvalid = torch.clamp(torch.sum(mask), min=1.0)
+    return torch.sum(per * mask) / nvalid, nvalid
+
+
+def train_epoch(state: TrainState, data: BatchedData) -> float:
+    """One pass of Adam steps over every batch; the epoch's mean loss."""
+    model = state.model
+    sums = torch.zeros((), dtype=torch.float32, device=data.x.device)
+    for i in range(data.n_batches):
+        loss, nvalid = _batch_loss(model, data.x[i], data.mask[i])
+        loss.backward()
+        state.apply_gradients()
+        sums += loss.detach() * nvalid
+    return float(sums / torch.clamp(torch.sum(data.mask), min=1.0))
+
+
+@torch.no_grad()
+def eval_epoch(model, data: BatchedData) -> float:
+    sums = torch.zeros((), dtype=torch.float32, device=data.x.device)
+    for i in range(data.n_batches):
+        loss, nvalid = _batch_loss(model, data.x[i], data.mask[i])
+        sums += loss * nvalid
+    return float(sums / torch.clamp(torch.sum(data.mask), min=1.0))
+
+
+def train_aec(
+    model,
+    state: TrainState,
+    tra: BatchedData,
+    val: Optional[BatchedData],
+    config: AECConfig,
+    log_scalar: Optional[Callable[[str, float, int], None]] = None,
+    save_checkpoint: Optional[Callable[[str, object], None]] = None,
+    snapshot_path: Optional[str] = None,
+    resume: bool = False,
+    sync_every: int = 1,
+) -> Dict:
+    """Run AEC pretraining on `model` (the module `state` optimizes).
+    Returns the state, the final params (a state_dict copy: the
+    best-validation params when early stopping kept any), the best
+    validation loss, the history and the stop epoch.
+
+    `sync_every` is accepted and changes nothing: in the JAX package it
+    fuses epochs into one device call with results defined to be identical
+    to the per-epoch loop, and this port always runs that loop.
+    `save_checkpoint(name, state_dict)` is called with the JAX package's
+    names. `snapshot_path` and `resume` are not ported yet."""
+    del sync_every
+    if snapshot_path is not None or resume:
+        raise NotImplementedError(
+            "train_aec snapshot_path/resume are not ported yet: ROADMAP "
+            "Queue 1 item 5 (workflow and CLI, with train/checkpoint.py)"
+        )
+    if state.model is not model:
+        raise ValueError("state must optimize the model being trained")
+    best_val = float("inf")
+    best_params = None
+    strikes = 0
+    finished = False
+    history: Dict[str, List[float]] = {"epoch": [], "train": [], "validation": []}
+    epoch = -1
+    for epoch in range(config.n_epochs):
+        tra_loss = train_epoch(state, tra)
+        val_loss = eval_epoch(model, val) if val is not None else tra_loss
+        history["epoch"].append(epoch + 1)
+        history["train"].append(tra_loss)
+        history["validation"].append(val_loss)
+        if log_scalar is not None:
+            log_scalar("Training MSE", tra_loss, epoch + 1)
+            log_scalar("Validation MSE", val_loss, epoch + 1)
+        if config.verbose:
+            print(
+                f"Epoch [{epoch + 1}/{config.n_epochs}] "
+                f"train={tra_loss:.4e} val={val_loss:.4e}"
+            )
+        if config.early_stopping:
+            if val_loss < best_val:
+                strikes = 0
+                best_val = val_loss
+                best_params = params_copy(model)
+                if save_checkpoint is not None:
+                    save_checkpoint("AEC_Best_Weights", best_params)
+            else:
+                strikes = 1 if epoch == 0 else strikes + 1
+            if epoch > config.patience and strikes > config.patience:
+                finished = True
+        elif save_checkpoint is not None:
+            save_checkpoint(f"AEC_Params_{epoch + 1:03d}", params_copy(model))
+        if finished:
+            break
+
+    final_params = (
+        best_params
+        if (config.early_stopping and best_params is not None)
+        else params_copy(model)
+    )
+    return {
+        "state": state,
+        "final_params": final_params,
+        "best_val": best_val,
+        "history": history,
+        "stopped_early": finished,
+        "last_epoch": epoch + 1,
+    }

@@ -1,5 +1,6 @@
 """The torch port on the card: the CUDA STFT kernel against its plain
-version, and the serving slice on CUDA against the same slice on the CPU.
+version, and the serving and training slices on CUDA against the same
+slices on the CPU.
 
 Every test here needs an NVIDIA GPU (the kernel has no CPU mode) and skips
 itself without one. The file imports neither jax nor the JAX package, and
@@ -9,11 +10,19 @@ with a card and without jax it runs as
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import types
+
 import numpy as np
 import pytest
 import torch
 
-from spectrogram_cube_clustering_tpu_torch import models, serve
+from spectrogram_cube_clustering_tpu_torch import (
+    cluster,
+    models,
+    serve,
+    train,
+    workflow,
+)
 from spectrogram_cube_clustering_tpu_torch.core.device import tf32_flags
 from spectrogram_cube_clustering_tpu_torch.ops import cuda_stft
 from spectrogram_cube_clustering_tpu_torch.signal import stft
@@ -133,3 +142,100 @@ def test_fused_frontend_on_card_matches_cpu(cuda_device):
     np.testing.assert_allclose(got["z"], want["z"], rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(wf_card.windows(wave), wf_cpu.windows(wave),
                                rtol=0, atol=STFT_ATOL)
+
+
+def _tone_windows(n_windows, seed=0):
+    """Normalized windows of a waveform of five tones, one per 400-sample
+    stretch (computed on the CPU)."""
+    rng = np.random.default_rng(seed)
+    t = n_windows * 400 + 100
+    kind = np.repeat(rng.integers(0, 5, -(-t // 400)), 400)[:t]
+    wave = 10.0 * np.sin(2 * np.pi * (0.03 + 0.09 * kind) * np.arange(t))
+    wave = torch.from_numpy((wave + rng.normal(size=t)).astype(np.float32))
+    return stft.spectrogram_windows(wave)
+
+
+def test_train_aec_epoch_on_card_matches_cpu(cuda_device):
+    """One epoch from the same weights: losses within rtol 1e-3 (cuDNN
+    against CPU convs, both float32 with TF32 off)."""
+    x = _tone_windows(384)
+    sd = models.AEC(generator=torch.Generator().manual_seed(4)).state_dict()
+    hist = []
+    for dev in ("cpu", cuda_device):
+        model = models.AEC(device=dev)
+        model.load_state_dict(sd)
+        out = train.train_aec(
+            model, train.create_train_state(model, 1e-3),
+            train.make_batched_data(x[:256].to(dev), 64),
+            train.make_batched_data(x[256:].to(dev), 64),
+            train.AECConfig(n_epochs=1))
+        assert not any(tf32_flags().values())
+        hist.append(out["history"]["train"] + out["history"]["validation"])
+    np.testing.assert_allclose(hist[1], hist[0], rtol=1e-3)
+
+
+def test_gmm_em_on_card_matches_cpu(cuda_device):
+    """From the same initial weights and means: equal n_iter and labels,
+    means within 1e-4."""
+    rng = np.random.default_rng(1)
+    centers = rng.normal(scale=6.0, size=(5, 9))
+    z = (centers[rng.integers(0, 5, 4000)]
+         + rng.normal(size=(4000, 9))).astype(np.float32)
+    means0 = z[rng.choice(4000, 5, replace=False)]
+    weights0 = np.full(5, 0.2, np.float32)
+    want_labels, want = cluster.gmm_em(z, weights0, means0)
+    got_labels, got = cluster.gmm_em(z, weights0, means0, device=cuda_device)
+    assert got.means.is_cuda and got.n_iter == want.n_iter
+    assert torch.equal(got_labels.cpu(), want_labels)
+    torch.testing.assert_close(got.means.cpu(), want.means, rtol=0,
+                               atol=1e-4)
+
+
+def test_train_dec_segment_on_card_matches_cpu(cuda_device):
+    """One refresh segment from the same weights, labels and centroids:
+    per-batch running losses within rtol 1e-3, a refresh's delta within
+    one label."""
+    x = _tone_windows(256, seed=2)
+    dec = models.DEC(5, generator=torch.Generator().manual_seed(5))
+    with torch.no_grad():
+        dec.encoder.encoder[8].weight.mul_(30.0)
+        dec.encoder.encoder[8].bias.mul_(30.0)
+        z = dec.encode(x)
+    centroids = z[:5].numpy()
+    labels = torch.cdist(z, z[:5]).argmin(1).numpy()
+    sd = dec.state_dict()
+    out = []
+    for dev in ("cpu", cuda_device):
+        model = models.DEC(5, device=dev)
+        model.load_state_dict(sd)
+        data = train.make_batched_data(x.to(dev), 32)
+        out.append(train.train_dec(
+            model, train.create_train_state(model, 1e-3), data,
+            train.DECConfig(n_clusters=5, n_epochs=1, gamma=0.1, tol=0.0,
+                            init="load", update_interval=4),
+            initial=(labels, centroids)))
+    want, got = out
+    assert got["deltas"]["iteration"] == want["deltas"]["iteration"] == [5]
+    np.testing.assert_allclose(got["deltas"]["delta"], want["deltas"]["delta"],
+                               rtol=0, atol=1.0 / len(x) + 1e-7)
+    np.testing.assert_allclose(got["history"]["total"],
+                               want["history"]["total"], rtol=1e-3)
+
+
+def test_load_windows_on_card_launches_the_kernel(cuda_device, tmp_path):
+    """The workflow's waveform source runs the STFT kernel once and gives
+    the CPU route's windows within the kernel contract."""
+    wave = np.random.default_rng(3).normal(size=(2, 30_000))
+    np.save(tmp_path / "wave.npy", wave.astype(np.float32))
+
+    def config(device):
+        return types.SimpleNamespace(
+            model="AEC", mode="train", datafiletype="waveform",
+            fname_dataset=str(tmp_path / "wave.npy"), device=device)
+
+    before = cuda_stft.LAUNCHES
+    got, _ = workflow.load_windows(config(cuda_device), split=False)
+    assert cuda_stft.LAUNCHES == before + 1
+    assert got.is_cuda and got.shape == (2 * 74, 4, 101, 1)
+    want, _ = workflow.load_windows(config("cpu"), split=False)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=STFT_ATOL)

@@ -104,3 +104,38 @@ def test_target_distribution_rounding_matches_jax(latents):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * (1 + 1e-3))
     to_boundary = np.abs(np.abs(raw * 1e5 % 1.0) - 0.5) * 1e-5
     assert (to_boundary[differ] <= 1e-6).all()
+
+
+def test_rounding_flip_bound_for_dec(rng):
+    """The bound DEC training relies on (ROADMAP Queue 3): where the two
+    `target_distribution(q, 5)` differ, they differ by exactly one step
+    of 1e-5, and no argmax moves where the top-two gap exceeds 1e-4 —
+    neither the labels of each side's own rounded q nor those of p."""
+    z = rng.normal(size=(20_000, 9)).astype(np.float32)
+    mu = rng.normal(size=(5, 9)).astype(np.float32)
+    jq = np.asarray(jst.student_t_assignment(jnp.asarray(z), jnp.asarray(mu)))
+    tq = student_t.student_t_assignment(
+        torch.from_numpy(z), torch.from_numpy(mu)
+    ).numpy()
+    want = np.asarray(jst.target_distribution(jnp.asarray(jq), 5))
+    got = student_t.target_distribution(torch.from_numpy(jq.copy()), 5).numpy()
+    # one step, up to float32's spacing of values below 1 (1.19e-7)
+    ulp = float(np.spacing(np.float32(1.0)))
+    gap = np.abs(got.astype(np.float64) - want)
+    flipped = gap > 0.5e-5
+    assert flipped.sum() > 0  # the fault shows at this size
+    np.testing.assert_allclose(gap[flipped], 1e-5, rtol=0, atol=ulp)
+    assert gap[~flipped].max() <= ulp
+
+    def clear(a):
+        top2 = np.sort(a, axis=1)[:, -2:]
+        return top2[:, 1] - top2[:, 0] > 1e-4
+
+    q_clear = clear(jq)
+    labels_j = np.argmax(np.round(jq, 5), axis=1)
+    labels_t = np.argmax(np.round(tq, 5), axis=1)
+    np.testing.assert_array_equal(labels_t[q_clear], labels_j[q_clear])
+    p_clear = clear(want)
+    np.testing.assert_array_equal(
+        np.argmax(got, axis=1)[p_clear], np.argmax(want, axis=1)[p_clear]
+    )

@@ -306,7 +306,8 @@ def test_main_requires_n_clusters_for_dec(tmp_path):
 
 
 def test_package_imports_no_jax():
-    """Every module of the port imports without jax, flax or optax."""
+    """Every module of the port, the training slice's subpackages
+    included, imports without jax, flax or optax."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import spectrogram_cube_clustering_tpu_torch as pkg\n"
@@ -314,6 +315,8 @@ def test_package_imports_no_jax():
         "pkg.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "assert len(names) >= 15, names\n"
+        "for sub in ('train', 'cluster', 'data', 'workflow'):\n"
+        "    assert pkg.__name__ + '.' + sub in names, sub\n"
         "bad = [m for m in ('jax', 'flax', 'optax', 'orbax', "
         "'spectrogram_cube_clustering_tpu') if m in sys.modules]\n"
         "assert not bad, bad\n"
