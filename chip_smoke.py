@@ -1,5 +1,5 @@
-"""Drive the torch port's serving and training paths once on one NVIDIA
-GPU, and check them.
+"""Drive the torch port's serving, training and CLI workflow paths once on
+one NVIDIA GPU, and check them.
 
     python3 chip_smoke.py [--seed N]
 
@@ -31,8 +31,25 @@ the script exits non-zero:
    refresh on 2,048 windows must give the same losses on the CPU and the
    card within rtol 1e-3. Two more AEC epochs, one plain and one under
    torch.profiler, give the device's busy time against each wall;
-5. times: kernel and plain STFT at (16, 2^20) with CUDA events, and the
-   p50 latency of each waveform request.
+4c. workflow: the five stages (AEC train, AEC predict, GMM fit, DEC train
+   with init=load, DEC predict) through the port's `cli.run_dc`, card by
+   default, figures and tb off, AEC 3 epochs batch 64 lr 1e-3 with early
+   stopping, GMM K=5 with 100 k-means restarts, DEC batch 64 lr 5e-4
+   gamma 1e-3 tol 3e-3 2 epochs. Source A: the port's `build_cube` (the
+   STFT kernel must launch) of a (16, 3,167,400) waveform of the same tone
+   kinds, whose cube as written must lie within atol 2e-3 of the plain
+   STFT of that waveform, read with chunk_size 5758 from channel 0 stride
+   1: 23,024 windows. Source B: `datafiletype = waveform` on a (16, 2^20) `.npy`,
+   41,936 windows (the kernel must launch in >= 4 stages). Each stage's
+   artifact names must be the JAX layout's (`.pt` files for its orbax
+   directories, no figures); the DEC-predict labels must reach NMI >= 0.90
+   against the kinds, q's rows sum to 1 within the rounding of its K
+   values to 5 decimals, and cluster_performance.csv hold K rows. Stage
+   walls, build_cube seconds and load_data read seconds are printed;
+5. times: kernel, plain STFT and the library call (`torch.stft` in
+   float64, |.|^2, log10) at (16, 2^20) with CUDA events, the kernel's
+   bound (an FFT's FP64 operations and the HBM bytes at the H100 SXM
+   data sheet's peaks), and the p50 latency of each waveform request.
 
 The last two lines are a JSON object describing each kernel and
 {"ok": true, "device": {...}}.
@@ -41,8 +58,10 @@ The last two lines are a JSON object describing each kernel and
 from __future__ import annotations
 
 import argparse
+import csv
 import io
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -56,6 +75,15 @@ STFT_ATOL = 2e-3  # log10 units: the kernel contract (tests/test_signal.py:47)
 Q_ATOL = 1e-5
 LABEL_GAP = 1e-4
 BIG = (16, 1 << 20)
+# 31,673 frames, whose usable 2/11 (the reference reader's, data/cube.py)
+# are exactly one 5,758-row chunk per channel: 16 items x 1,439 windows.
+# (16, 2^22) would give 41,942 frames and a usable 7,624 rows, which the
+# reader refuses as not a whole number of chunks.
+CUBE_WAVE = (16, 3_167_400)
+# H100 SXM data sheet: FP64 tensor-core peak (the SIMT FP64 peak is half)
+# and HBM3 bandwidth, at the 700 W limit
+FP64_PEAK = 67e12
+HBM_BYTES_PER_S = 3.35e12
 GEOMETRIES = [  # (nperseg, hop, waveform shape)
     (200, 100, (1, 200)), (200, 100, (1, 950)), (200, 100, (1, 1_100)),
     (200, 100, (1, 60_000)), (200, 100, (1, 1 << 20)),
@@ -487,6 +515,187 @@ def phase_training(device, gen, card, cuda_stft, spectrogram_plain,
     return launches
 
 
+#: artifact names of each stage in the JAX package's tree, its orbax
+#: directories as `.pt` files and without figures
+STAGE_FILES = {
+    "aec_train": {"AEC_Params_Final.pt", "AEC_history.csv", "tmp"},
+    "aec_tmp": {"AEC_Best_Weights.pt", "SNAPSHOT"},
+    "aec_predict": {"Loss_AEC.npy", "MSE.txt", "Xr_AEC.npy", "Z_AEC.npy"},
+    "gmm_fit": {"Labels.csv", "Z_AEC.path", "centroids.npy", "labels.npy"},
+    "dec_train": {"DEC_Params_Initial.pt", "DEC_Params_Final.pt",
+                  "DEC_history.csv", "Delta_history.csv", "GMM", "tmp"},
+    "dec_predict": {"Labels.csv", "X_MAE.npy", "X_MAE_avg.npy", "X_MSE.npy",
+                    "X_MSE_avg.npy", "X_ip.npy", "Xr_DEC.npy", "Z_DEC.npy",
+                    "centroids_DEC.npy", "cluster_performance.csv",
+                    "labels_DEC.npy", "q_DEC.npy", "silh_scores_X.npy",
+                    "silh_scores_Z.npy"},
+}
+
+
+def _files(path: str) -> set:
+    return {f for f in os.listdir(path) if not f.startswith("ExpConfig")}
+
+
+def run_five_stages(root: str, universal: dict, card: str, name: str):
+    """AEC train, AEC predict, GMM fit, DEC train (init=load) and DEC
+    predict, each through the port's `cli.run_dc` with the card as the
+    default device; checks every stage's artifact names. Returns the DEC
+    predict directory, the stage walls and the `load_data` read seconds."""
+    from spectrogram_cube_clustering_tpu_torch import cli
+    from spectrogram_cube_clustering_tpu_torch.utils import config_training
+
+    walls, reads = {}, {}
+
+    def run(stage, params, hp=None):
+        ini = config_training(
+            {"savepath": f"{root}/Outputs", "configpath": f"{root}/Config",
+             "transform": "sample_norm_cent", **universal},
+            {"tb": "False", "show": "False", "figures": "False", **params},
+            hp)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cfg = cli.run_dc(init_path=ini)
+        torch.cuda.synchronize()
+        walls[stage] = time.perf_counter() - t0
+        check(cfg.device.type == "cuda", f"{name} {stage} ran on {cfg.device}")
+        if hasattr(cfg, "load_seconds"):
+            reads[stage] = cfg.load_seconds
+        return cfg
+
+    def run_dir(cfg):
+        [d] = [d for d in os.listdir(cfg.savepath_exp) if d.startswith("Run_")]
+        return os.path.join(cfg.savepath_exp, d)
+
+    aec = run_dir(run("aec_train", {"model": "AEC", "mode": "train",
+                                    "n_epochs": 3, "early_stopping": "True"},
+                      {"batch_size": "64", "lr": "0.001"}))
+    weights = os.path.join(aec, "AEC_Params_Final.pt")
+    run("aec_predict", {"model": "AEC", "mode": "predict",
+                        "saved_weights": weights})
+    run("gmm_fit", {"model": "GMM", "mode": "fit", "saved_weights": weights,
+                    "km_n_init": 100, "km_max_iter": 1000},
+        {"n_clusters": "5"})
+    dec = run_dir(run("dec_train", {"model": "DEC", "mode": "train",
+                                    "n_epochs": 2, "saved_weights": weights,
+                                    "init": "load"},
+                      {"batch_size": "64", "lr": "0.0005", "n_clusters": "5",
+                       "gamma": "0.001", "tol": "0.003"}))
+    run("dec_predict", {"model": "DEC", "mode": "predict",
+                        "saved_weights": os.path.join(dec,
+                                                      "DEC_Params_Final.pt")})
+    trees = {"aec_train": aec, "aec_tmp": os.path.join(aec, "tmp"),
+             "aec_predict": os.path.join(aec, "Prediction"),
+             "gmm_fit": os.path.join(aec, "GMM", "n_clusters=5"),
+             "dec_train": dec, "dec_predict": os.path.join(dec, "Prediction")}
+    for stage, path in trees.items():
+        # later stages write into the run dirs of earlier ones
+        later = {"GMM", "Prediction"} if stage == "aec_train" else {
+            "Prediction"}
+        got = _files(path) - later
+        check(got == STAGE_FILES[stage],
+              f"{name} {stage} artifacts {sorted(got)}")
+    walls_s = {k: round(v, 3) for k, v in walls.items()}
+    reads_s = {k: round(v, 4) for k, v in reads.items()}
+    print(f"workflow {name} on {card}: stage walls {walls_s} s; load_data "
+          f"read (source read + copy to the card) {reads_s} s", flush=True)
+    return trees["dec_predict"], walls, reads
+
+
+def check_dec_predict(pred: str, truth: np.ndarray, name: str) -> float:
+    """NMI of the DEC-predict labels against the planted kinds (gate
+    0.90), q's rows summing to 1, one metrics row per cluster."""
+    labels = np.load(os.path.join(pred, "labels_DEC.npy"))
+    q = np.load(os.path.join(pred, "q_DEC.npy"))
+    check(labels.shape == truth.shape, f"{name} labels {labels.shape}")
+    # each of the K values is rounded to 5 decimals: the row sum may miss
+    # 1 by K half-steps
+    sum_err = float(np.abs(q.astype(np.float64).sum(1) - 1.0).max())
+    with open(os.path.join(pred, "cluster_performance.csv")) as f:
+        rows = [r for r in csv.reader(f)][1:]
+    score = nmi(truth, labels)
+    print(f"workflow {name}: DEC predict labels NMI vs kinds {score:.4f} "
+          f"over {len(labels)} windows; q row sums within {sum_err:.2e} of "
+          f"1; cluster_performance.csv {len(rows) - 1} class rows + mean",
+          flush=True)
+    check(sum_err <= q.shape[1] * 0.5e-5 + 1e-6, f"{name} q row sums")
+    check(len(rows) - 1 == 5 and rows[-1][0] == "mean",
+          f"{name} metrics rows")
+    check(score >= 0.90, f"{name} DEC predict NMI {score}")
+    return score
+
+
+def phase_workflow(device, gen, card, cuda_stft,
+                   spectrogram_plain) -> tuple:
+    """The 5-stage CLI workflow through the port's `run_dc`, from a Zarr
+    cube written by the port's `build_cube` (source A) and from the raw
+    waveform (source B). Returns the STFT launches of both and the largest
+    gap of the written cube from the plain STFT of its waveform."""
+    import tempfile
+
+    from spectrogram_cube_clustering_tpu_torch import cli
+    from spectrogram_cube_clustering_tpu_torch.data import zarrlite
+
+    launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        # source A: the cube of a CUBE_WAVE waveform
+        c, t = CUBE_WAVE
+        kinds = torch.randint(0, 5, (c, -(-t // 400)), generator=gen,
+                              device=device)
+        wave = synthetic_waveform(CUBE_WAVE, gen, device, kinds=kinds,
+                                  amplitude=10.0)
+        np.save(f"{tmp}/cube_wave.npy", wave.cpu().numpy())
+        cuda_stft.LAUNCHES = 0  # build_cube's run starts here
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cube = cli.build_cube([f"{tmp}/cube_wave.npy", f"{tmp}/cube.zarr"])
+        build_s = time.perf_counter() - t0
+        build_launches = cuda_stft.LAUNCHES  # ... and ends here
+        print(f"workflow zarr: build_cube {build_s:.3f} s on {card} "
+              f"(STFT kernel launches {build_launches})", flush=True)
+        check(build_launches >= 1, "STFT kernel in build_cube")
+        launches += build_launches
+        # the cube as written, every tile and frame of this shape, against
+        # the plain STFT of the same waveform in (frames, channels, freq)
+        written = torch.from_numpy(zarrlite.open_group(cube)["cube"][:])
+        want = spectrogram_plain(wave).transpose(0, 1).cpu()
+        check(written.shape == want.shape, f"cube {tuple(written.shape)}")
+        check(bool(torch.isfinite(written).all()), "finite cube")
+        cube_err = float((written - want).abs().max())
+        print(f"workflow zarr: cube {tuple(written.shape)} vs plain STFT "
+              f"max_abs_err {cube_err:.3e}", flush=True)
+        check(cube_err <= STFT_ATOL, f"build_cube cube err {cube_err}")
+        del wave, written, want
+        pred, _, _ = run_five_stages(
+            f"{tmp}/A", {"fname_dataset": cube, "chunk_size": 5758,
+                         "channel_start": 0, "channel_stride": 1,
+                         "window_rows": 4}, card, "zarr")
+        # item i is channel i, rows 0..5755: window w holds kind [i, w]
+        check_dec_predict(pred, kinds[:, :1439].reshape(-1).cpu().numpy(),
+                          "zarr")
+
+        # source B: the raw (16, 2^20) waveform
+        c, t = BIG
+        kinds = torch.randint(0, 5, (c, -(-t // 400)), generator=gen,
+                              device=device)
+        wave = synthetic_waveform(BIG, gen, device, kinds=kinds,
+                                  amplitude=10.0)
+        np.save(f"{tmp}/wave.npy", wave.cpu().numpy())
+        del wave
+        per_channel = ((t - 200) // 100 + 1) // 4
+        cuda_stft.LAUNCHES = 0  # the waveform stages' run starts here
+        pred, _, _ = run_five_stages(
+            f"{tmp}/B", {"fname_dataset": f"{tmp}/wave.npy",
+                         "datafiletype": "waveform"}, card, "waveform")
+        wave_launches = cuda_stft.LAUNCHES  # ... and ends here
+        print(f"workflow waveform: STFT kernel launches {wave_launches}",
+              flush=True)
+        check(wave_launches >= 4, "STFT kernel in the waveform stages")
+        launches += wave_launches
+        check_dec_predict(pred, kinds[:, :per_channel].reshape(-1).cpu()
+                          .numpy(), "waveform")
+    return launches, cube_err
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -617,21 +826,56 @@ def main() -> int:
     # 4b. the training slice
     train_launches = phase_training(device, gen, card, cuda_stft,
                                     spectrogram_plain, args.seed)
+    # 4c. the 5-stage CLI workflow, from a Zarr cube and a raw waveform
+    wf_launches, cube_err = phase_workflow(device, gen, card, cuda_stft,
+                                           spectrogram_plain)
+    max_err = max(max_err, cube_err)
     print(f"STFT kernel launches: serving path {launches}, training path "
-          f"{train_launches}", flush=True)
+          f"{train_launches}, workflow {wf_launches}", flush=True)
     check(train_launches >= 1, "STFT kernel on the training path")
 
-    # 5. times
+    # 5. times: kernel, plain version and the library call (cuFFT through
+    # torch.stft in float64, then |.|^2 and log10) on the same input
     x = torch.randn(BIG, generator=gen, device=device)
+    win = torch.hann_window(200, periodic=True, dtype=torch.float64,
+                            device=device)
+
+    def library():
+        s = torch.stft(x.double(), n_fft=200, hop_length=100, window=win,
+                       center=False, return_complex=True)
+        return torch.log10(s.abs() ** 2 + 1e-12)
+
+    lib_err = float((library().transpose(-1, -2).float()
+                     - cuda_stft.spectrogram_cuda(x)).abs().max())
+    check(lib_err <= STFT_ATOL, f"torch.stft vs kernel {lib_err}")
     plain = [cuda_ms(lambda: spectrogram_plain(x))]
     kern = [cuda_ms(lambda: cuda_stft.spectrogram_cuda(x)) for _ in range(2)]
     plain.append(cuda_ms(lambda: spectrogram_plain(x)))
+    library_ms = cuda_ms(library)
     kernel_ms, plain_ms = float(np.median(kern)), float(np.median(plain))
     n = x.numel()
+    # the bound: the waveform read once and the spectrogram written once
+    # (the Hann window and the DFT's twiddles are constants of nperseg);
+    # the function's operations as an FFT computes them, per frame: the
+    # window (N multiplies), a real FFT of N points (2.5 N log2 N FLOP,
+    # half the 5 N log2 N of a complex one), then |.|^2 (3) and log10 (1)
+    # per bin
+    b, t = BIG
+    n_fft, frames, nfreq = 200, (t - 200) // 100 + 1, 101
+    flop = b * frames * (n_fft + 2.5 * n_fft * np.log2(n_fft) + 4 * nfreq)
+    nbytes = b * t * 4 + b * frames * nfreq * 4
+    ops_ms, bytes_ms = flop / FP64_PEAK * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
     print(f"stft {BIG} on {card}: kernel {kernel_ms:.4f} ms "
           f"({n / kernel_ms / 1e6:.3f} G samples/s; runs {kern}), plain "
           f"{plain_ms:.4f} ms ({n / plain_ms / 1e6:.3f} G samples/s; runs "
-          f"{plain})", flush=True)
+          f"{plain}), torch.stft float64 + |.|^2 + log10 {library_ms:.4f} ms "
+          f"(max_abs_err vs kernel {lib_err:.3e}); bound {bound_ms:.4f} ms "
+          f"by {bound_by} ({flop:.4e} FP64 FLOP at {FP64_PEAK:.3g}/s = "
+          f"{ops_ms:.4f} ms; {nbytes} bytes at {HBM_BYTES_PER_S:.3g} B/s = "
+          f"{bytes_ms:.4f} ms), kernel at {bound_ms / kernel_ms:.1%} of it",
+          flush=True)
     for name, ms in latency.items():
         print(f"p50 latency {name} on {card}: {ms:.2f} ms", flush=True)
 
@@ -641,10 +885,13 @@ def main() -> int:
         "route": "cuda",
         "source": "spectrogram_cube_clustering_tpu_torch/csrc/stft.cu",
         "replaces": "spectrogram_cube_clustering_tpu/ops/pallas_stft.py:86",
-        "launches": launches + train_launches,
+        "launches": launches + train_launches + wf_launches,
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": library_ms,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

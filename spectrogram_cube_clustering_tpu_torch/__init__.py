@@ -13,11 +13,16 @@ core      : explicit devices, the float32 (no TF32) policy
 ops       : normalizers, Student-t assignment, losses, the CUDA STFT kernel
 signal    : waveform -> spectrogram windows
 models    : Encoder / Decoder / AEC / DEC (torch.nn)
-train     : batches on the device, Adam state, AEC pretraining, DEC refinement
-cluster   : batched k-means restarts, full-covariance GMM-EM
-data      : the seeded train/validation split
-workflow  : waveform data loading, model construction from a config
-utils     : weights from the JAX package's params and from `.pt` files
+train     : batches on the device, Adam state, AEC pretraining, DEC
+            refinement, checkpoints and resumable snapshots
+cluster   : batched k-means restarts, full-covariance GMM-EM, silhouettes
+            and per-class metrics
+data      : the Zarr reader/writer, the cube window dataset, the split
+workflow  : the train / fit / predict stages from a config, Zarr-cube or
+            raw-waveform source
+utils     : `.ini` configuration, history CSVs, weights across frameworks
+cli       : `run-dc-torch`, the five workflow drivers, `build-cube-torch`
+            (imported on use, not by this package)
 serve     : predictors and the raw-waveform frontend
 serve_http: HTTP front end with micro-batching (`scc-serve-torch`)
 """

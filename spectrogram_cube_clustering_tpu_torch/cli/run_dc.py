@@ -1,0 +1,104 @@
+"""`run-dc-torch` — the clustering workflow from an `.ini` config
+(counterpart of the JAX package's `cli/run_dc.py`; reference
+Cluster/runDC:25-99).
+
+Parses the `.ini` path and a device, builds the `Configuration`, checks
+the inputs, runs train / predict / fit, and notifies on completion. The
+device is the card unless `--device cpu` (or `device = cpu` in the ini)
+asks for the CPU; `--device N` picks card N.
+
+The ini must say `figures = False`: the figures and t-SNE are ROADMAP
+Queue 1 item 9, and `figures` defaults to True as in the JAX package, so
+without it the run raises NotImplementedError. `tb = True` raises too
+(TensorBoard, item 15).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+from datetime import datetime
+from typing import Optional, Union
+
+from spectrogram_cube_clustering_tpu_torch import workflow
+from spectrogram_cube_clustering_tpu_torch.utils.config import Configuration
+from spectrogram_cube_clustering_tpu_torch.workflow.train import (
+    _figures_not_ported,
+    check_not_ported,
+)
+
+
+def notify(subject: str, content: str, path: Optional[str] = None) -> None:
+    """Completion notification: print, and append to `path` when given
+    (the reference's `utils.notify` is missing, runDC:23,91-93)."""
+    print(f"[notify] {subject}\n{content}")
+    if path:
+        with open(path, "a") as f:
+            f.write(f"{subject}\n{content}\n")
+
+
+def main(init_path: Optional[str] = None,
+         device: Union[int, str, None] = None,
+         argv: Optional[list] = None) -> Configuration:
+    if init_path is None:
+        parser = argparse.ArgumentParser(
+            description="Pretrain (AEC), fit (GMM), or train (DEC) the "
+            "spectrogram-cube clustering workflow from an .ini config, "
+            "with the PyTorch port."
+        )
+        parser.add_argument("init_path", help="path to init .ini file")
+        parser.add_argument(
+            "--device", default=None,
+            help="'cpu', or a CUDA device index (default: the ini's "
+            "`device`, else the card)",
+        )
+        args = parser.parse_args(argv)
+        init_path = args.init_path
+        device = args.device
+
+    config = Configuration(init_path).load_config()
+    config.set_device(device)
+    check_not_ported(config)
+    figures = bool(getattr(config, "figures", True))
+    if figures:
+        raise _figures_not_ported("figures=True")
+    config.init_exp_env()
+    config.save_exp_config()
+
+    tic = datetime.now()
+    if config.model != "GMM" and not os.path.exists(config.fname_dataset):
+        raise ValueError(f"Dataset file not found: {config.fname_dataset}")
+    if config.model in ("DEC", "GMM") or config.mode in ("predict", "fit"):
+        if not os.path.exists(getattr(config, "saved_weights", "")):
+            raise ValueError(
+                f"Saved weights not found: {getattr(config, 'saved_weights', None)}"
+            )
+
+    print("=" * 80)
+    print(f"Executing {config.verb} mode for {config.model} on "
+          f"{config.device}")
+    if config.mode == "train":
+        workflow.train(config)
+    elif config.mode == "predict":
+        workflow.predict(config, figures=figures)
+    elif config.mode == "fit":
+        workflow.gmm_fit(config, figures=figures)
+    else:
+        raise ValueError(f"unknown mode {config.mode!r}")
+    toc = datetime.now()
+    content = (
+        f"{config.model} {config.verb} completed at {toc}.\n"
+        f"Time Elapsed = {toc - tic}."
+    )
+    print(content)
+    if getattr(config, "send_message", False):
+        notify(
+            f"{config.model} {config.verb} completed.", content,
+            path=os.path.join(config.savepath_exp, "COMPLETED.txt"),
+        )
+    print("=" * 80)
+    return config
+
+
+if __name__ == "__main__":
+    main()

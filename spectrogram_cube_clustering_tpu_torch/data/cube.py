@@ -1,13 +1,154 @@
-"""The seeded train/validation split (a copy of the JAX package's
-`data/cube.py` `train_val_split`, which cannot be imported without jax;
-tests pin the copy to the original). The Zarr cube dataset is not ported
-yet: ROADMAP Queue 1 item 5."""
+"""Spectrogram-cube dataset: Zarr cube -> 4-row windows, and the seeded
+train/validation split.
+
+Copies of the JAX package's `data/cube.py` `CubeSpec`, `ZarrCubeDataset`
+and `train_val_split` (numpy only, but not importable without jax through
+that package's `__init__`); tests pin each copy to its original. Window
+math of the reference (Cluster/ZarrDataLoader.py:42-85):
+
+- the cube is (time, channel, freq); only the first 2/11 of the time axis
+  is used: usable_time = shape[0] // 11 * 2;
+- items are whole `chunk_size`-row time chunks of one channel;
+- item -> location: start_time = (idx * chunk) % usable_time, channel =
+  (idx * chunk) // usable_time * channel_stride + channel_start;
+- each chunk splits into consecutive `window_rows`-row windows, the
+  trailing partial window dropped (5758 -> 1439 windows of 4 rows).
+
+The reader returns raw float32 window stacks on the host; the workflow
+moves them to the device and normalizes there.
+"""
 
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
+
+from spectrogram_cube_clustering_tpu_torch.data import zarrlite
+
+
+@dataclasses.dataclass(frozen=True)
+class CubeSpec:
+    """Window-extraction geometry (defaults = reference constants)."""
+
+    chunk_size: int = 5758
+    window_rows: int = 4
+    channel_start: int = 1600
+    channel_stride: int = 5
+    time_num: int = 2     # usable fraction of the time axis =
+    time_den: int = 11    # shape[0] // time_den * time_num
+
+    def usable_time(self, n_time: int) -> int:
+        return n_time // self.time_den * self.time_num
+
+    def windows_per_item(self) -> int:
+        return self.chunk_size // self.window_rows
+
+    def num_items(self, shape: Tuple[int, int, int]) -> int:
+        usable = self.usable_time(shape[0])
+        n_ch = (shape[1] - self.channel_start) // self.channel_stride
+        return (usable // self.chunk_size) * n_ch
+
+    def item_location(self, idx: int, shape: Tuple[int, int, int]) -> Tuple[int, int]:
+        usable = self.usable_time(shape[0])
+        start_time = (idx * self.chunk_size) % usable
+        channel = (
+            (idx * self.chunk_size) // usable
+        ) * self.channel_stride + self.channel_start
+        return start_time, channel
+
+
+class ZarrCubeDataset:
+    """Window extraction over a (time, channel, freq) Zarr cube. Each item
+    is a stack of (windows_per_item, window_rows, n_freq, 1) float32
+    spectrogram windows."""
+
+    def __init__(
+        self,
+        zarr_path: str,
+        spec: CubeSpec = CubeSpec(),
+        array_name: Optional[str] = None,
+    ):
+        try:
+            group = zarrlite.open_group(zarr_path)
+        except FileNotFoundError:
+            # not a group: a bare array store
+            self.array = zarrlite.open_array(zarr_path)
+        else:
+            names = group.keys()
+            if array_name is not None:
+                if array_name not in names:
+                    raise FileNotFoundError(
+                        f"array {array_name!r} not found in group "
+                        f"{zarr_path} (has: {names or 'no arrays'})"
+                    )
+                self.array = group[array_name]
+            elif names:
+                self.array = group[names[0]]
+            else:
+                raise FileNotFoundError(
+                    f"zarr group {zarr_path} contains no arrays"
+                )
+        if self.array.ndim != 3:
+            raise ValueError(
+                f"expected a 3-D (time, channel, freq) cube, got {self.array.shape}"
+            )
+        self.spec = spec
+        self.shape = self.array.shape
+        self._len = spec.num_items(self.shape)
+        if self._len <= 0:
+            raise ValueError(
+                f"cube {self.shape} yields no items under {spec}; "
+                "check channel_start/chunk_size against the cube geometry"
+            )
+        usable = spec.usable_time(self.shape[0])
+        if usable % spec.chunk_size != 0:
+            # the reference's wrap formula mis-assigns channels and reads
+            # past the usable time unless it is a whole number of chunks
+            raise ValueError(
+                f"usable time {usable} is not a multiple of chunk_size "
+                f"{spec.chunk_size}: the reference wrap formula would "
+                "mis-map items; re-chunk or adjust chunk_size"
+            )
+
+    def __len__(self) -> int:
+        return self._len
+
+    @property
+    def windows_per_item(self) -> int:
+        return self.spec.windows_per_item()
+
+    @property
+    def n_windows(self) -> int:
+        return len(self) * self.windows_per_item
+
+    @property
+    def window_shape(self) -> tuple:
+        """(window_rows, n_freq, 1) — the per-window shape of `item`."""
+        return (self.spec.window_rows, self.shape[2], 1)
+
+    def item(self, idx: int) -> np.ndarray:
+        """(windows_per_item, window_rows, n_freq, 1) float32."""
+        if not 0 <= idx < self._len:
+            raise IndexError(f"item {idx} out of range [0, {self._len})")
+        start, channel = self.spec.item_location(idx, self.shape)
+        rows = self.spec.windows_per_item() * self.spec.window_rows
+        chunk = self.array[start : start + rows, channel, :]
+        w = chunk.reshape(
+            self.spec.windows_per_item(), self.spec.window_rows, -1
+        )
+        return w[..., None].astype(np.float32)
+
+    __getitem__ = item
+
+    def iter_items(self, indices=None) -> Iterator[np.ndarray]:
+        for i in indices if indices is not None else range(self._len):
+            yield self.item(i)
+
+    def load_all_windows(self, indices=None) -> np.ndarray:
+        """(n, window_rows, n_freq, 1) float32 of the given items, in order."""
+        return np.concatenate(list(self.iter_items(indices)), axis=0)
 
 
 def train_val_split(

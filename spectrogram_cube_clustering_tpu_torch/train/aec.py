@@ -7,7 +7,9 @@ its per-epoch path; reference Cluster/models.py:761-926).
   one host sync per epoch;
 - early stopping: strikes reset on improvement, a first epoch without one
   counts 1, the run stops once epoch > patience and strikes > patience,
-  and the best-validation params are the final ones.
+  and the best-validation params are the final ones;
+- a snapshot after every epoch when asked (`train/checkpoint.py`), from
+  which `resume` continues.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
+from spectrogram_cube_clustering_tpu_torch.train import checkpoint as ckpt
 from spectrogram_cube_clustering_tpu_torch.train.layout import BatchedData
 from spectrogram_cube_clustering_tpu_torch.train.state import (
     TrainState,
@@ -83,13 +86,11 @@ def train_aec(
     fuses epochs into one device call with results defined to be identical
     to the per-epoch loop, and this port always runs that loop.
     `save_checkpoint(name, state_dict)` is called with the JAX package's
-    names. `snapshot_path` and `resume` are not ported yet."""
+    names. With `snapshot_path`, a snapshot (model, Adam state, step, the
+    early-stopping state and the history) is written after every epoch;
+    `resume=True` continues from it: the history goes on without a gap,
+    and a snapshot written at the early stop stays stopped."""
     del sync_every
-    if snapshot_path is not None or resume:
-        raise NotImplementedError(
-            "train_aec snapshot_path/resume are not ported yet: ROADMAP "
-            "Queue 1 item 5 (workflow and CLI, with train/checkpoint.py)"
-        )
     if state.model is not model:
         raise ValueError("state must optimize the model being trained")
     best_val = float("inf")
@@ -97,8 +98,21 @@ def train_aec(
     strikes = 0
     finished = False
     history: Dict[str, List[float]] = {"epoch": [], "train": [], "validation": []}
-    epoch = -1
-    for epoch in range(config.n_epochs):
+    start_epoch = 0
+    if resume and snapshot_path is not None and ckpt.snapshot_exists(
+            snapshot_path):
+        state, meta, extra = ckpt.restore_snapshot(snapshot_path, state)
+        start_epoch = meta["epoch"]
+        history = meta["history"]
+        best_val = meta["best_val"]
+        strikes = meta["strikes"]
+        if meta["have_best"]:
+            best_params = extra
+        finished = bool(meta["done"])
+        if config.verbose:
+            print(f"Resumed from {snapshot_path} at epoch {start_epoch}")
+    epoch = start_epoch - 1
+    for epoch in () if finished else range(start_epoch, config.n_epochs):
         tra_loss = train_epoch(state, tra)
         val_loss = eval_epoch(model, val) if val is not None else tra_loss
         history["epoch"].append(epoch + 1)
@@ -125,6 +139,16 @@ def train_aec(
                 finished = True
         elif save_checkpoint is not None:
             save_checkpoint(f"AEC_Params_{epoch + 1:03d}", params_copy(model))
+        if snapshot_path is not None:
+            # `done` marks a snapshot written at the early stop, so a
+            # resume does not train past the stopping point
+            ckpt.save_snapshot(
+                snapshot_path, state,
+                {"epoch": epoch + 1, "history": history,
+                 "best_val": best_val, "strikes": strikes,
+                 "have_best": best_params is not None, "done": finished},
+                extra=best_params,
+            )
         if finished:
             break
 

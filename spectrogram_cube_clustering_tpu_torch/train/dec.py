@@ -10,7 +10,9 @@ reference Cluster/models.py:929-1231).
   run stops, before that segment trains, once delta < tol;
 - each batch's loss is MSE + gamma * KL(p || q) over its real rows, with
   the rows of p at the batch's offset (the batches are never shuffled);
-- one history row per batch holds the epoch's running means.
+- one history row per batch holds the epoch's running means;
+- a snapshot after every epoch when asked (`train/checkpoint.py`), from
+  which `resume` continues.
 
 The module holds the params, so unlike the JAX functions these take no
 params argument. The loop is plain Python over device-resident batches,
@@ -31,6 +33,7 @@ from spectrogram_cube_clustering_tpu_torch.ops.losses import dec_loss
 from spectrogram_cube_clustering_tpu_torch.ops.student_t import (
     target_distribution,
 )
+from spectrogram_cube_clustering_tpu_torch.train import checkpoint as ckpt
 from spectrogram_cube_clustering_tpu_torch.train.layout import BatchedData
 from spectrogram_cube_clustering_tpu_torch.train.state import (
     TrainState,
@@ -166,12 +169,10 @@ def train_dec(
 
     `snapshot_cb(epoch, labels, z, centroids, initial=(z0, labels0,
     centroids0))` is called every `snapshot_every` epochs with numpy
-    arrays. `snapshot_path` and `resume` are not ported yet."""
-    if snapshot_path is not None or resume:
-        raise NotImplementedError(
-            "train_dec snapshot_path/resume are not ported yet: ROADMAP "
-            "Queue 1 item 5 (workflow and CLI, with train/checkpoint.py)"
-        )
+    arrays. With `snapshot_path`, a snapshot (model, Adam state, step,
+    the target distribution, the previous labels, the histories) is
+    written after every epoch that did not stop; `resume=True` continues
+    from it without cluster init, and `initial_params` is then None."""
     if state.model is not model:
         raise ValueError("state must optimize the model being trained")
     m, nb, bsz = data.n_samples, data.n_batches, data.batch_size
@@ -182,25 +183,37 @@ def train_dec(
         update_interval = int(config.update_interval)
     update_interval = max(update_interval, 1)
 
-    labels_prev, centroids = initialize_clusters(model, data, config, initial)
-    replace_centroids(model, centroids)
-    initial_params = params_copy(model)
-    q, _, z0 = full_eval(model, data)
-    initial_snapshot = None
-    if snapshot_cb is not None:
-        initial_snapshot = (z0.cpu().numpy(), labels_prev.cpu().numpy(),
-                            centroids.cpu().numpy())
-    del z0
-    p_all = _pad_p(target_distribution(q), nb, bsz)
-
     history: Dict[str, List[float]] = {
         "iteration": [], "reconstruction": [], "clustering": [], "total": [],
     }
     deltas: Dict[str, List[float]] = {"iteration": [], "delta": []}
     n_iter = 1
+    start_epoch = 0
+    initial_snapshot = None
+    if resume and snapshot_path is not None and ckpt.snapshot_exists(
+            snapshot_path):
+        # the snapshot carries the live target and the previous labels;
+        # its params are mid-training, not the pre-refinement init
+        state, meta, extra = ckpt.restore_snapshot(snapshot_path, state)
+        start_epoch = meta["epoch"]
+        history, deltas, n_iter = meta["history"], meta["deltas"], meta["n_iter"]
+        p_all, labels_prev = extra["p_all"], extra["labels_prev"]
+        initial_params = None
+    else:
+        labels_prev, centroids = initialize_clusters(model, data, config,
+                                                     initial)
+        replace_centroids(model, centroids)
+        initial_params = params_copy(model)
+        q, _, z0 = full_eval(model, data)
+        if snapshot_cb is not None:
+            initial_snapshot = (z0.cpu().numpy(), labels_prev.cpu().numpy(),
+                                centroids.cpu().numpy())
+        del z0
+        p_all = _pad_p(target_distribution(q), nb, bsz)
+
     finished = False
-    epoch = -1
-    for epoch in range(config.n_epochs):
+    epoch = start_epoch - 1
+    for epoch in range(start_epoch, config.n_epochs):
         running = np.zeros(4)  # loss, rec, clust, size (epoch-accumulated)
         pending: List[torch.Tensor] = []
         for batch_num in range(nb):
@@ -249,6 +262,13 @@ def train_dec(
                 epoch + 1, labels_s.cpu().numpy(), z_s.cpu().numpy(),
                 model.clustering.weights.detach().cpu().numpy(),
                 initial=initial_snapshot,
+            )
+        if snapshot_path is not None and not finished:
+            ckpt.save_snapshot(
+                snapshot_path, state,
+                {"epoch": epoch + 1, "history": history, "deltas": deltas,
+                 "n_iter": n_iter},
+                extra={"p_all": p_all, "labels_prev": labels_prev},
             )
         if finished:
             break

@@ -1,8 +1,23 @@
-"""Weights across frameworks."""
+"""Configuration, history/label CSV writers, and weights across
+frameworks."""
 
+from spectrogram_cube_clustering_tpu_torch.utils.config import (  # noqa: F401
+    Configuration,
+    config_training,
+    load_config,
+    parse_nclusters,
+)
+from spectrogram_cube_clustering_tpu_torch.utils.history import (  # noqa: F401
+    save_history,
+    save_labels,
+)
 from spectrogram_cube_clustering_tpu_torch.utils.weights import (  # noqa: F401
     load_state_dict_file,
     state_dict_from_jax_params,
 )
 
-__all__ = ["load_state_dict_file", "state_dict_from_jax_params"]
+__all__ = [
+    "Configuration", "config_training", "load_config", "load_state_dict_file",
+    "parse_nclusters", "save_history", "save_labels",
+    "state_dict_from_jax_params",
+]

@@ -1,0 +1,106 @@
+"""The 5-stage CLI workflow as a whole, port against JAX on the CPU: AEC
+train, AEC predict, GMM fit, DEC train with `init = load` and DEC
+predict, each through its package's `run-dc`, from a Zarr cube written by
+the port's `build-cube` and from the raw waveform `.npy`.
+
+The two chains start from different initial weights (a torch generator
+against `jax.random.key`), so they agree as label sets: the final DEC
+labels at NMI >= 0.99 against each other and against the planted kinds.
+Both chains use weight seed `SEED`. Five tone kinds, each silent in its
+stretch's first 100 samples (`torch_train_common._waveform(gap=True)`),
+256 windows in batches of 4: what the training-slice test found to
+separate the kinds in 2 epochs.
+"""
+
+import os
+
+import numpy as np
+import pytest
+from sklearn.metrics import normalized_mutual_info_score as nmi
+
+from spectrogram_cube_clustering_tpu import cli as jcli
+from spectrogram_cube_clustering_tpu import utils as jutils
+from spectrogram_cube_clustering_tpu_torch import cli
+from spectrogram_cube_clustering_tpu_torch.utils import config_training
+from torch_train_common import _waveform, one_torch_thread  # noqa: F401
+
+CHUNK = 128  # rows per Zarr item: 32 windows of 4 frames
+# the weights' seed (and k-means'): from the port's seed-0 weights the AEC
+# loss stays flat for both epochs on the Zarr source (a stuck start, GMM
+# NMI 0.47), from seeds 1-3 the kinds separate
+SEED = 1
+
+
+def _chain(root, source, run_dc, writer, weights_name):
+    """Run the five stages under `root`; returns the final DEC labels and
+    every stage's artifact names."""
+    def run(params, hp=None):
+        ini = writer(
+            {"fname_dataset": source["path"],
+             "savepath": os.path.join(root, "Outputs"),
+             "configpath": os.path.join(root, "Config"),
+             "transform": "sample_norm_cent", **source["keys"]},
+            {"tb": "False", "show": "False", "figures": "False",
+             "device": "cpu", "seed": SEED, **params}, hp)
+        return run_dc(init_path=ini)
+
+    def run_dir(cfg):
+        return os.path.join(cfg.savepath_exp, [
+            d for d in os.listdir(cfg.savepath_exp) if d.startswith("Run_")][0])
+
+    names = {}
+    aec = run_dir(run({"model": "AEC", "mode": "train", "n_epochs": 2},
+                      {"batch_size": "4", "lr": "0.001"}))
+    names["aec"] = sorted(os.listdir(aec))
+    weights = os.path.join(aec, weights_name("AEC_Params_Final"))
+    run({"model": "AEC", "mode": "predict", "saved_weights": weights})
+    names["aec_predict"] = sorted(os.listdir(os.path.join(aec, "Prediction")))
+    run({"model": "GMM", "mode": "fit", "saved_weights": weights,
+         "km_n_init": 100}, {"n_clusters": "5"})
+    names["gmm"] = sorted(os.listdir(os.path.join(aec, "GMM",
+                                                  "n_clusters=5")))
+    dec = run_dir(run({"model": "DEC", "mode": "train", "n_epochs": 2,
+                       "saved_weights": weights, "init": "load"},
+                      {"batch_size": "4", "lr": "0.0005", "n_clusters": "5",
+                       "gamma": "0.001", "tol": "0.003"}))
+    names["dec"] = sorted(os.listdir(dec))
+    run({"model": "DEC", "mode": "predict",
+         "saved_weights": os.path.join(dec, weights_name("DEC_Params_Final"))})
+    pred = os.path.join(dec, "Prediction")
+    names["dec_predict"] = sorted(os.listdir(pred))
+    names = {k: [n for n in v if not n.startswith("ExpConfig")]
+             for k, v in names.items()}
+    return np.load(os.path.join(pred, "labels_DEC.npy")), names
+
+
+@pytest.mark.parametrize("source", ["zarr", "waveform"])
+def test_run_dc_chain_matches_jax(tmp_path, source):
+    if source == "zarr":
+        # 8 channels x 70,500 samples -> 704 frames, whose usable 2/11
+        # are one 128-row item per channel
+        wave, kinds = _waveform(8, 70_500, seed=2, gap=True)
+        kinds = kinds.reshape(8, -1)[:, : CHUNK // 4].reshape(-1)
+        np.save(tmp_path / "wave.npy", wave)
+        path = cli.build_cube([str(tmp_path / "wave.npy"),
+                               str(tmp_path / "cube.zarr"), "--chunk-rows",
+                               str(CHUNK), "--device", "cpu"])
+        src = {"path": path, "keys": {"chunk_size": CHUNK, "channel_start": 0,
+                                      "channel_stride": 1}}
+    else:
+        wave, kinds = _waveform(2, 51_600, seed=1, gap=True)
+        np.save(tmp_path / "wave.npy", wave)
+        src = {"path": str(tmp_path / "wave.npy"),
+               "keys": {"datafiletype": "waveform"}}
+    assert len(kinds) == 256
+    mine, mine_names = _chain(str(tmp_path / "port"), src, cli.run_dc,
+                              config_training, lambda n: f"{n}.pt")
+    theirs, theirs_names = _chain(str(tmp_path / "jax"), src, jcli.run_dc,
+                                  jutils.config_training, lambda n: n)
+    assert nmi(mine, theirs) >= 0.99
+    assert nmi(kinds, mine) >= 0.99
+    assert nmi(kinds, theirs) >= 0.99
+    # the JAX artifact tree, orbax directories as `.pt` files, no figures
+    for stage, want in theirs_names.items():
+        want = {n if n in ("tmp", "GMM", "Prediction") or "." in n
+                else f"{n}.pt" for n in want if not n.endswith(".png")}
+        assert set(mine_names[stage]) == want, stage

@@ -1,6 +1,6 @@
 """The torch port on the card: the CUDA STFT kernel against its plain
-version, and the serving and training slices on CUDA against the same
-slices on the CPU.
+version, and the serving and training slices and the CLI (`build-cube`,
+`run-dc`) on CUDA against the same on the CPU.
 
 Every test here needs an NVIDIA GPU (the kernel has no CPU mode) and skips
 itself without one. The file imports neither jax nor the JAX package, and
@@ -239,3 +239,65 @@ def test_load_windows_on_card_launches_the_kernel(cuda_device, tmp_path):
     assert got.is_cuda and got.shape == (2 * 74, 4, 101, 1)
     want, _ = workflow.load_windows(config("cpu"), split=False)
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=STFT_ATOL)
+
+
+def test_build_cube_on_card_matches_cpu(cuda_device, tmp_path):
+    """build-cube on the card (the default device) launches the kernel
+    once and writes the cube `--device cpu` writes, within the kernel
+    contract."""
+    from spectrogram_cube_clustering_tpu_torch import cli
+    from spectrogram_cube_clustering_tpu_torch.data import zarrlite
+
+    wave = np.random.default_rng(4).normal(size=(3, 8_900))
+    np.save(tmp_path / "wave.npy", wave.astype(np.float32))
+    before = cuda_stft.LAUNCHES
+    got = cli.build_cube([str(tmp_path / "wave.npy"),
+                          str(tmp_path / "card.zarr"), "--chunk-rows", "44"])
+    assert cuda_stft.LAUNCHES == before + 1
+    want = cli.build_cube([str(tmp_path / "wave.npy"),
+                           str(tmp_path / "cpu.zarr"), "--chunk-rows", "44",
+                           "--device", "cpu"])
+    got, want = (zarrlite.open_group(p)["cube"] for p in (got, want))
+    assert got.shape == want.shape == (88, 3, 101)
+    np.testing.assert_allclose(got[:], want[:], rtol=0, atol=STFT_ATOL)
+
+
+def test_run_dc_on_card_matches_cpu(cuda_device, tmp_path):
+    """run-dc AEC train and predict from a waveform: on the card by
+    default, `device = cpu` on the CPU; the same history within rtol 1e-3
+    and latents within 1e-3 (float32 convolutions in other orders)."""
+    import os
+
+    from spectrogram_cube_clustering_tpu_torch import cli
+    from spectrogram_cube_clustering_tpu_torch.utils import config_training
+
+    wave = np.random.default_rng(5).normal(size=(2, 40_000))
+    np.save(tmp_path / "wave.npy", wave.astype(np.float32))
+    out = {}
+    for dev in ("card", "cpu"):
+        root = tmp_path / dev
+        extra = {"device": "cpu"} if dev == "cpu" else {}
+
+        def run(params, hp=None):
+            ini = config_training(
+                {"fname_dataset": str(tmp_path / "wave.npy"),
+                 "datafiletype": "waveform", "savepath": str(root / "Out"),
+                 "configpath": str(root / "Config"),
+                 "transform": "sample_norm_cent", **extra},
+                {"tb": "False", "figures": "False", **params}, hp)
+            return cli.run_dc(init_path=ini)
+
+        cfg = run({"model": "AEC", "mode": "train", "n_epochs": 2},
+                  {"batch_size": "32", "lr": "0.001"})
+        assert cfg.device.type == ("cuda" if dev == "card" else "cpu")
+        [run_dir] = [os.path.join(cfg.savepath_exp, d)
+                     for d in os.listdir(cfg.savepath_exp)
+                     if d.startswith("Run_")]
+        run({"model": "AEC", "mode": "predict",
+             "saved_weights": os.path.join(run_dir, "AEC_Params_Final.pt")})
+        out[dev] = (np.loadtxt(os.path.join(run_dir, "AEC_history.csv"),
+                               delimiter=",", skiprows=1),
+                    np.load(os.path.join(run_dir, "Prediction", "Z_AEC.npy")))
+    np.testing.assert_allclose(out["card"][0], out["cpu"][0], rtol=1e-3)
+    np.testing.assert_allclose(out["card"][1], out["cpu"][1], rtol=0,
+                               atol=1e-3)

@@ -281,18 +281,6 @@ def test_make_model_matches_jax(model, hw, faithful):
 def _not_ported_calls():
     x = np.zeros((4, 4, 101, 1), np.float32)
 
-    def aec(**kw):
-        m = models.AEC()
-        b = train.make_batched_data(x, 2)
-        train.train_aec(m, train.create_train_state(m, 1e-3), b, None,
-                        train.AECConfig(n_epochs=1), **kw)
-
-    def dec(**kw):
-        m = models.DEC(2)
-        b = train.make_batched_data(x, 2)
-        train.train_dec(m, train.create_train_state(m, 1e-3), b,
-                        train.DECConfig(n_clusters=2, init="rand"), **kw)
-
     def windows(**kw):
         cfg = types.SimpleNamespace(model="AEC", mode="train",
                                     fname_dataset="unused.npy", **kw)
@@ -304,13 +292,7 @@ def _not_ported_calls():
     return {
         "layout_mesh": (lambda: train.make_batched_data(x, 2, mesh=object()),
                         "item 11"),
-        "aec_snapshot": (lambda: aec(snapshot_path="snap"), "item 5"),
-        "aec_resume": (lambda: aec(resume=True), "item 5"),
-        "dec_snapshot": (lambda: dec(snapshot_path="snap"), "item 5"),
-        "dec_resume": (lambda: dec(resume=True), "item 5"),
-        "zarr": (lambda: windows(datafiletype="zarr"), "item 5"),
-        "zarr_default": (lambda: windows(), "item 5"),
-        "h5": (lambda: windows(datafiletype="h5"), "item 5"),
+        "h5": (lambda: windows(datafiletype="h5"), "item 14"),
         "stream": (lambda: windows(datafiletype="waveform",
                                    loadmode="stream"), "item 7"),
         "packed": (lambda: model(arch="packed"), "item 8"),
