@@ -46,6 +46,25 @@ the script exits non-zero:
    against the kinds, q's rows sum to 1 within the rounding of its K
    values to 5 decimals, and cluster_performance.csv hold K rows. Stage
    walls, build_cube seconds and load_data read seconds are printed;
+4d. variants: the STFT precision and interior kernels
+   (`csrc/stft_variants.cu`) through their entry points: K1's
+   `precision="default"` (TF32), the folded STFT at HIGHEST, DEFAULT and
+   bf16x3 (`experiments.stft_precision`), K4's passthrough, DEFAULT and
+   HIGHEST pipelines (`experiments.stft_isolate`) and K5's c-only,
+   power and full modes (`experiments.stft_decompose`). Each is held
+   against its plain version on the same CUDA tensors at nperseg 200 /
+   hop 100 on 200,000 and 4,000,000 samples, a (16, 2^20) batch and
+   ragged lengths (K1's also at 256/64 and 128/16): p99.9 of the gap
+   within 1e-4 and the largest error against a float64 oracle within
+   max(2e-3, 1.5 x the plain version's), the passthrough bit-equal
+   (log10 values; power through log10; c over its frame's sum |x w|).
+   `spectrogram_windows(precision="default")` of a (16, 2^20) waveform
+   must launch the TF32 kernel and not K1's, and each entry point, run
+   at (16, 2^20) (K4: 4,000,000 samples) with the counts at 0, must
+   launch its kernel. Prints the accuracy table at 200,000 samples
+   against the oracle and K1, and each kernel's time, its plain
+   version's, its library call's (`torch.stft` in float32, then |.|^2
+   and log10; a shifted add for the passthrough) and its bound;
 5. times: kernel, plain STFT and the library call (`torch.stft` in
    float64, |.|^2, log10) at (16, 2^20) with CUDA events, the kernel's
    bound (an FFT's FP64 operations and the HBM bytes at the H100 SXM
@@ -84,6 +103,37 @@ CUBE_WAVE = (16, 3_167_400)
 # and HBM3 bandwidth, at the 700 W limit
 FP64_PEAK = 67e12
 HBM_BYTES_PER_S = 3.35e12
+# ... and the pipes of the variants: FP32 outside the tensor cores, dense
+# TF32 and BF16 tensor cores
+PIPE_PEAK = {"f32": 67e12, "tf32": 495e12, "bf16x3": 989e12}
+VARIANT_P999 = 1e-4  # kernel against plain, benchmarks/stft_outslice_tpu.py:150
+VARIANT_MAIN = BIG         # the variants' main-path input ...
+VARIANT_1D = 4_000_000     # ... and K4's, a 1-D waveform
+VARIANT_ACCURACY = 200_000
+#: (name, TPU kernel replaced, format, epilogue, padded layout); format
+#: None is K4's passthrough
+VARIANTS = [
+    ("stft_tf32", "spectrogram_cube_clustering_tpu/ops/pallas_stft.py:86",
+     "tf32", "log", False),
+    ("folded_highest", "benchmarks/stft_precision_tpu.py:77", "f32", "log",
+     False),
+    ("folded_default", "benchmarks/stft_precision_tpu.py:77", "tf32", "log",
+     False),
+    ("folded_bf16x3", "benchmarks/stft_precision_tpu.py:87", "bf16x3", "log",
+     False),
+    ("isolate_passthrough", "benchmarks/stft_isolate_tpu.py:40", None, None,
+     True),
+    ("isolate_default", "benchmarks/stft_isolate_tpu.py:40", "tf32", "log",
+     True),
+    ("isolate_highest", "benchmarks/stft_isolate_tpu.py:40", "f32", "log",
+     True),
+    ("decompose_nopow", "benchmarks/stft_decompose_tpu.py:62", "f32", "c",
+     False),
+    ("decompose_nolog", "benchmarks/stft_decompose_tpu.py:62", "f32", "power",
+     False),
+    ("decompose_full", "benchmarks/stft_decompose_tpu.py:62", "f32", "log",
+     False),
+]
 GEOMETRIES = [  # (nperseg, hop, waveform shape)
     (200, 100, (1, 200)), (200, 100, (1, 950)), (200, 100, (1, 1_100)),
     (200, 100, (1, 60_000)), (200, 100, (1, 1 << 20)),
@@ -696,6 +746,251 @@ def phase_workflow(device, gen, card, cuda_stft,
     return launches, cube_err
 
 
+def p999(err: torch.Tensor) -> float:
+    """The 99.9th percentile of err: the least of its largest 0.1%
+    (torch.quantile takes at most 2^24 values)."""
+    flat = err.flatten()
+    return float(flat.topk(max(1, -(-flat.numel() // 1000))).values.min())
+
+
+def variant_oracle(x, nperseg, hop, epilogue, rows=None, lanes=None):
+    """The float64 value each variant is compared in, for (B, T) x over
+    `rows` frames of the zero-padded waveform and `lanes` bins (default:
+    the frames and bins of the narrow output): log10(c^2 + s^2 + 1e-12)
+    for log and power, c over its frame's sum |x w| for c; and that frame
+    scale (1e-30 for a frame of zeros)."""
+    from spectrogram_cube_clustering_tpu_torch.signal.stft import (
+        np_hann,
+        windowed_dft_bases,
+    )
+
+    nfreq = nperseg // 2 + 1
+    rows = (x.shape[-1] - nperseg) // hop + 1 if rows is None else rows
+    need = (rows - 1) * hop + nperseg
+    xp = torch.nn.functional.pad(x.double(), (0, max(0, need - x.shape[-1])))
+    frames = xp[:, :need].unfold(-1, nperseg, hop)
+    cos_b, sin_b = (torch.from_numpy(v).to(x.device)
+                    for v in windowed_dft_bases(nperseg))
+    win = torch.from_numpy(np_hann(nperseg)).to(x.device)
+    scale = (frames.abs() @ win)[..., None].clamp_min(1e-30)
+    c = frames @ cos_b
+    pad = (0, (lanes or nfreq) - nfreq)
+    if epilogue == "c":
+        return torch.nn.functional.pad(c, pad) / scale, scale
+    s = frames @ sin_b
+    want = torch.log10(c * c + s * s + 1e-12)
+    return torch.nn.functional.pad(want, pad, value=-12.0), scale
+
+
+def variant_values(got, epilogue, scale):
+    """A variant's float32 output in the oracle's terms (float64)."""
+    if epilogue == "c":
+        return got.double() / scale
+    return torch.log10(got.double()) if epilogue == "power" else got.double()
+
+
+def phase_variants(device, gen, card, cuda_stft, spectrogram_windows):
+    """Phase 4d: the STFT precision and interior kernels against their
+    plain versions, the path through their entry points, the accuracy
+    table and the times. Returns the kernels line's entries."""
+    from spectrogram_cube_clustering_tpu_torch.experiments import (
+        stft_decompose,
+        stft_isolate,
+        stft_precision,
+    )
+    from spectrogram_cube_clustering_tpu_torch.ops import (
+        cuda_stft_variants as stv,
+    )
+
+    lanes = stft_isolate.LANE
+
+    def spec(name, fmt, epilogue, padded, t, nperseg=200, hop=100):
+        """Keywords of the wrapper and plain version of a variant for a
+        waveform of t samples."""
+        kw = dict(fmt=fmt, epilogue=epilogue)
+        if padded:
+            kw.update(rows=stft_isolate.rows_padded(t, 256), lanes=lanes)
+        chunks = nperseg // hop if name.startswith(("isolate", "decompose")) \
+            else 1
+        return kw, chunks
+
+    def kernel(name, fmt, epilogue, padded, x, nperseg=200, hop=100):
+        """(kernel output, plain output) of a variant on the same x."""
+        t = x.shape[-1]
+        if fmt is None:
+            rows = stft_isolate.rows_padded(t, 256)
+            return (stv.passthrough_cuda(x, hop, nperseg // hop, rows, lanes),
+                    stv.passthrough_plain(x, hop, nperseg // hop, rows, lanes))
+        kw, chunks = spec(name, fmt, epilogue, padded, t, nperseg, hop)
+        if name == "stft_tf32":  # through K1's entry point
+            got = cuda_stft.spectrogram(x, nperseg, hop, precision="default")
+        else:
+            got = stv.stft_variant_cuda(x, nperseg, hop, **kw)
+        return got, stv.stft_variant_plain(x, nperseg, hop, chunks=chunks,
+                                           **kw)
+
+    # kernel against plain at each geometry
+    shapes = [(1, VARIANT_ACCURACY), (1, VARIANT_1D), VARIANT_MAIN,
+              (1, 30_099), (3, 4_567), (2, 12_345)]
+    worst = {}
+    for name, _, fmt, epilogue, padded in VARIANTS:
+        geoms = [(200, 100, s) for s in shapes]
+        if name == "stft_tf32":
+            geoms += [(256, 64, (2, 100_000)), (128, 16, (1, 50_000))]
+        worst[name] = 0.0
+        for nperseg, hop, shape in geoms:
+            x = torch.randn(shape, generator=gen, device=device)
+            got, want = kernel(name, fmt, epilogue, padded, x, nperseg, hop)
+            torch.cuda.synchronize()
+            check(got.shape == want.shape,
+                  f"{name} shape {tuple(got.shape)} vs {tuple(want.shape)}")
+            check(bool(torch.isfinite(got).all()), f"{name} finite")
+            if fmt is None:
+                print(f"variant {name} {shape}: bit-equal "
+                      f"{torch.equal(got, want)}", flush=True)
+                check(torch.equal(got, want), f"{name} {shape} bit-equal")
+                continue
+            kw = spec(name, fmt, epilogue, padded, shape[-1])[0]
+            ref, scale = variant_oracle(x, nperseg, hop, epilogue,
+                                        kw.get("rows"), kw.get("lanes"))
+            g = variant_values(got, epilogue, scale)
+            w = variant_values(want, epilogue, scale)
+            diff = (g - w).abs()
+            gap, q = float(diff.max()), p999(diff)
+            k_err = float((g - ref).abs().max())
+            p_err = float((w - ref).abs().max())
+            limit = max(STFT_ATOL, 1.5 * p_err)
+            print(f"variant {name} {nperseg}/{hop} {shape}: vs plain max "
+                  f"{gap:.3e} p99.9 {q:.3e}; vs float64 kernel {k_err:.3e} "
+                  f"plain {p_err:.3e} (limit {limit:.3e})", flush=True)
+            check(q <= VARIANT_P999, f"{name} {shape} p99.9 {q}")
+            check(k_err <= limit, f"{name} {shape} vs float64 {k_err}")
+            worst[name] = max(worst[name], gap)
+            del got, want, ref, scale, g, w, diff
+
+    # the path: each entry point with the counts at 0 just before it
+    xb = torch.randn(VARIANT_MAIN, generator=gen, device=device)
+    x1 = torch.randn(VARIANT_1D, generator=gen, device=device)
+    paths = {
+        "stft_tf32": lambda: spectrogram_windows(xb, precision="default"),
+        "folded_highest": lambda: stft_precision.spectrogram_folded(xb),
+        "folded_default": lambda: stft_precision.spectrogram_folded(
+            xb, precision="default"),
+        "folded_bf16x3": lambda: stft_precision.spectrogram_folded_b3(xb),
+        "isolate_passthrough": lambda: stft_isolate.pipeline(
+            x1, "passthrough"),
+        "isolate_default": lambda: stft_isolate.pipeline(x1, "default"),
+        "isolate_highest": lambda: stft_isolate.pipeline(x1, "highest"),
+        "decompose_nopow": lambda: stft_decompose.variant(xb, "nopow"),
+        "decompose_nolog": lambda: stft_decompose.variant(xb, "nolog"),
+        "decompose_full": lambda: stft_decompose.variant(xb, "full"),
+    }
+    launches = {}
+    for name, _, fmt, epilogue, padded in VARIANTS:
+        key = stv.PASSTHROUGH if fmt is None else stv.variant_key(
+            fmt, epilogue, padded)
+        stv.LAUNCHES.clear()  # this entry point's run starts here
+        cuda_stft.LAUNCHES = 0
+        out = paths[name]()
+        torch.cuda.synchronize()
+        counts, k1 = dict(stv.LAUNCHES), cuda_stft.LAUNCHES  # ... ends here
+        launches[name] = counts.get(key, 0)
+        print(f"variant path {name}: out {tuple(out.shape)}, launches "
+              f"{counts}, K1 {k1}", flush=True)
+        check(launches[name] >= 1 and set(counts) == {key} and k1 == 0,
+              f"{name} path launches {counts}, K1 {k1}")
+        check(bool(torch.isfinite(out).all()), f"{name} path finite")
+    del out
+
+    # the accuracy table at VARIANT_ACCURACY samples, as the script prints
+    # it: against the float64 oracle and against K1
+    xa = torch.randn((1, VARIANT_ACCURACY), generator=gen, device=device)
+    k1 = cuda_stft.spectrogram_cuda(xa).double()
+    n_frames = k1.shape[1]
+    for name, _, fmt, epilogue, padded in VARIANTS:
+        if fmt is None:
+            continue
+        got = kernel(name, fmt, epilogue, padded, xa)[0][:, :n_frames, :101]
+        ref, scale = variant_oracle(xa, 200, 100, epilogue)
+        g = variant_values(got, epilogue, scale)
+        e64 = (g - ref).abs()
+        row = f"max {float(e64.max()):.3e} p99.9 {p999(e64):.3e}"
+        if epilogue != "c":
+            ek1 = (g - k1).abs()
+            row += (f"; vs K1 max {float(ek1.max()):.3e} "
+                    f"p99.9 {p999(ek1):.3e}")
+        print(f"accuracy {name} ({VARIANT_ACCURACY} samples) vs float64 "
+              f"{row}", flush=True)
+
+    # times at the main path's inputs, beside the plain version, the
+    # library call and the bound
+    win32 = torch.hann_window(200, periodic=True, device=device)
+
+    def library(x, epilogue):
+        s = torch.stft(x, n_fft=200, hop_length=100, window=win32,
+                       center=False, return_complex=True)
+        if epilogue == "c":
+            return s.real
+        power = s.real.square() + s.imag.square() + 1e-12
+        return torch.log10(power) if epilogue == "log" else power
+
+    entries = []
+    for name, replaces, fmt, epilogue, padded in VARIANTS:
+        x = x1[None] if name.startswith("isolate") else xb
+        b, t = x.shape
+        frames = (t - 200) // 100 + 1
+        if fmt is None:
+            rows = stft_isolate.rows_padded(t, 256)
+            xp = torch.nn.functional.pad(
+                torch.nn.functional.pad(x, (0, (rows + 1) * 100 - t))
+                .reshape(b, rows + 1, 100), (0, lanes - 100))
+            ms = cuda_ms(lambda: stv.passthrough_cuda(x, 100, 2, rows, lanes))
+            plain_ms = cuda_ms(
+                lambda: stv.passthrough_plain(x, 100, 2, rows, lanes))
+            library_ms = cuda_ms(lambda: xp[:, :-1] + xp[:, 1:])
+            flop, out_elems = b * rows * 100, b * rows * lanes
+        else:
+            kw, chunks = spec(name, fmt, epilogue, padded, t)
+            ms = cuda_ms(lambda: stv.stft_variant_cuda(x, **kw))
+            plain_ms = cuda_ms(
+                lambda: stv.stft_variant_plain(x, chunks=chunks, **kw))
+            library_ms = cuda_ms(lambda: library(x, epilogue))
+            out_frames = kw.get("rows", frames)
+            out_elems = b * out_frames * kw.get("lanes", 101)
+            # an FFT's operations per frame, as for K1 (phase 5), with the
+            # epilogue's per bin: |.|^2 + eps (3) and log10 (1)
+            per_bin = {"log": 4, "power": 3, "c": 0}[epilogue]
+            flop = b * out_frames * (200 + 2.5 * 200 * np.log2(200)
+                                     + per_bin * 101)
+        nbytes = 4 * (b * t + out_elems)
+        peak = PIPE_PEAK[fmt or "f32"]
+        ops_ms, bytes_ms = flop / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ms = max(ops_ms, bytes_ms)
+        bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+        print(f"variant {name} {tuple(x.shape)} on {card}: kernel {ms:.4f} ms "
+              f"({x.numel() / ms / 1e6:.3f} G samples/s), plain "
+              f"{plain_ms:.4f} ms, library {library_ms:.4f} ms; bound "
+              f"{bound_ms:.4f} ms by {bound_by} ({flop:.4e} FLOP at "
+              f"{peak:.3g}/s = {ops_ms:.4f} ms; {nbytes} bytes = "
+              f"{bytes_ms:.4f} ms), kernel at {bound_ms / ms:.1%} of it",
+              flush=True)
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": "spectrogram_cube_clustering_tpu_torch/csrc/"
+                      "stft_variants.cu",
+            "replaces": replaces,
+            "launches": launches[name],
+            "max_abs_err": worst[name],
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": library_ms,
+        })
+    return entries
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -833,6 +1128,9 @@ def main() -> int:
     print(f"STFT kernel launches: serving path {launches}, training path "
           f"{train_launches}, workflow {wf_launches}", flush=True)
     check(train_launches >= 1, "STFT kernel on the training path")
+    # 4d. the STFT precision and interior variants
+    variant_entries = phase_variants(device, gen, card, cuda_stft,
+                                     spectrogram_windows)
 
     # 5. times: kernel, plain version and the library call (cuFFT through
     # torch.stft in float64, then |.|^2 and log10) on the same input
@@ -892,7 +1190,7 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": library_ms,
-    }]}), flush=True)
+    }] + variant_entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

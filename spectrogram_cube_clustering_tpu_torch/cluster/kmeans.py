@@ -22,16 +22,23 @@ from typing import Tuple, Union
 
 import torch
 
-from spectrogram_cube_clustering_tpu_torch.core.device import fp32_policy_for
+from spectrogram_cube_clustering_tpu_torch.core.device import (
+    fp32_policy_for,
+    resolve_device,
+)
 from spectrogram_cube_clustering_tpu_torch.ops.student_t import (
     pairwise_sqdist,
 )
 
 
 def as_latents(z, device=None) -> torch.Tensor:
-    """(M, D) float32 or float64 tensor on `device` (default: where it is,
-    the CPU for numpy); TF32 off when that is a card."""
-    z = torch.as_tensor(z, device=device)
+    """(M, D) float32 or float64 tensor on `device`. By default a tensor
+    stays where it is and anything else goes to the card when there is
+    one, else the CPU (as `silhouette_samples` does); TF32 off when that
+    is a card."""
+    if device is None and isinstance(z, torch.Tensor):
+        device = z.device
+    z = torch.as_tensor(z, device=resolve_device(device))
     if z.dtype not in (torch.float32, torch.float64):
         z = z.to(torch.float32)
     fp32_policy_for(z.device)

@@ -97,6 +97,21 @@ def load_library() -> ctypes.CDLL:
                 ctypes.c_double, p,
             ]
             lib.scc_stft_launch.restype = i32
+            f32 = ctypes.c_float
+            # csrc/stft_variants.cu
+            lib.scc_stftv_mma_launch.argtypes = [
+                p, p, p, p, i64, i64, i64, i32, i32, i32, i32, i32, i32,
+                f32, p,
+            ]
+            lib.scc_stftv_mma_launch.restype = i32
+            lib.scc_stftv_f32_launch.argtypes = [
+                p, p, p, p, i64, i64, i64, i32, i32, i32, i32, i32, f32, p,
+            ]
+            lib.scc_stftv_f32_launch.restype = i32
+            lib.scc_stftv_passthrough_launch.argtypes = [
+                p, p, i64, i64, i64, i32, i32, i32, p,
+            ]
+            lib.scc_stftv_passthrough_launch.restype = i32
             lib.scc_cuda_error_string.argtypes = [i32]
             lib.scc_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

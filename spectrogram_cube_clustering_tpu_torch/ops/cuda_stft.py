@@ -21,6 +21,9 @@ import threading
 import torch
 
 from spectrogram_cube_clustering_tpu_torch.ops import _build
+from spectrogram_cube_clustering_tpu_torch.ops.cuda_stft_variants import (
+    stft_variant,
+)
 
 #: kernel launches in this process (read and reset by chip_smoke.py)
 LAUNCHES = 0
@@ -99,9 +102,34 @@ def spectrogram(
     hop: int = 100,
     log: bool = True,
     eps: float = 1e-12,
+    precision: str = "highest",
 ) -> torch.Tensor:
     """(..., T) -> (..., n_frames, nperseg//2 + 1) float32: the kernel for
-    a CUDA tensor, the plain version for a CPU tensor."""
+    a CUDA tensor, the plain version for a CPU tensor.
+
+    `precision="default"` is the JAX package's reduced-precision opt-in
+    (`spectrogram_pallas(precision="default")`): where the JAX package
+    would take its Pallas kernel on this geometry
+    (`signal.stft.pallas_eligible`) it runs the TF32 variant
+    (`ops.cuda_stft_variants`, one TF32 tensor-core pass: errors up to
+    O(1) on the log10 scale at near-zero bins, for clustering features
+    only); elsewhere the exact path, as the JAX rfft path ignores it."""
+    if precision not in ("highest", "default"):
+        raise ValueError(
+            f"precision must be 'highest' or 'default', got {precision!r}"
+        )
+    if precision == "default":
+        from spectrogram_cube_clustering_tpu_torch.signal.stft import (
+            pallas_eligible,
+        )
+
+        if pallas_eligible(nperseg, hop):
+            lead, t = x.shape[:-1], x.shape[-1]
+            out = stft_variant(
+                x.reshape(-1, t), nperseg, hop, fmt="tf32",
+                epilogue="log" if log else "power", eps=eps if log else 0.0,
+            )
+            return out.reshape(*lead, *out.shape[1:])
     if x.device.type == "cpu":
         from spectrogram_cube_clustering_tpu_torch.signal.stft import (
             spectrogram_plain,

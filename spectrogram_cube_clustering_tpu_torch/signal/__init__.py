@@ -5,6 +5,7 @@ from spectrogram_cube_clustering_tpu_torch.signal.stft import (  # noqa: F401
     frame,
     np_dft_angles,
     np_hann,
+    pallas_eligible,
     spectrogram,
     spectrogram_plain,
     spectrogram_windows,
@@ -12,6 +13,6 @@ from spectrogram_cube_clustering_tpu_torch.signal.stft import (  # noqa: F401
 )
 
 __all__ = [
-    "frame", "np_dft_angles", "np_hann", "spectrogram", "spectrogram_plain",
-    "spectrogram_windows", "windowed_dft_bases",
+    "frame", "np_dft_angles", "np_hann", "pallas_eligible", "spectrogram",
+    "spectrogram_plain", "spectrogram_windows", "windowed_dft_bases",
 ]

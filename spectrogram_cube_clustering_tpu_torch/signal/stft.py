@@ -7,9 +7,11 @@ and channel-major windowing:
 - `spectrogram_plain`: `torch.fft.rfft` over strided frames, the plain
   version and the parity oracle;
 - `spectrogram` (from `ops.cuda_stft`): the entry point. A CUDA tensor
-  goes to the hand-written kernel, a CPU tensor to `spectrogram_plain`.
+  goes to the hand-written kernel, a CPU tensor to `spectrogram_plain`;
+  `precision="default"` takes the TF32 variant where `pallas_eligible`.
 
-Both compute in float64 and round the float32 result once, after the log.
+On the exact path (`precision="highest"`) both compute in float64 and
+round the float32 result once, after the log.
 The windowed DFT cancels catastrophically at near-zero DC and Nyquist
 bins, where float32 sums are off by up to 0.06 on the log10 scale over a
 (16, 2^20) batch; in float64 the two implementations agree to float32
@@ -79,6 +81,20 @@ def spectrogram_plain(
     return power.to(torch.float32)
 
 
+def pallas_eligible(nperseg: int, hop: int) -> bool:
+    """True where the JAX package takes its Pallas STFT kernel on this
+    geometry: the conditions of its `pallas_eligible`
+    (signal/stft.py:95-118, copied) without the platform test. The hop-chunk
+    layout needs nperseg % hop == 0 and hop <= 128, and the hop-chunked
+    bases, 2 * ratio * 128 * round_up(nfreq, 128) float32, at most 4 MiB.
+    `precision="default"` takes the TF32 kernel exactly here."""
+    if not (nperseg % hop == 0 and hop <= 128):
+        return False
+    nfreq_pad = -(-(nperseg // 2 + 1) // 128) * 128
+    bases_bytes = 2 * (nperseg // hop) * 128 * nfreq_pad * 4
+    return bases_bytes <= 4 * 1024 * 1024
+
+
 def spectrogram_windows(
     x: torch.Tensor,
     nperseg: int = 200,
@@ -92,18 +108,9 @@ def spectrogram_windows(
     Consecutive `window_rows` frames form one window; each channel is
     windowed on its own and its trailing partial window dropped, so no
     window straddles a channel boundary; `transform` names the normalizer.
-    Only `precision="highest"` exists: the TF32 opt-in of the JAX package
-    is not ported yet."""
-    if precision == "default":
-        raise NotImplementedError(
-            'precision="default" (the reduced-precision STFT opt-in) is '
-            "not ported yet; see ROADMAP.md Queue 2"
-        )
-    if precision != "highest":
-        raise ValueError(
-            f"precision must be 'highest' or 'default', got {precision!r}"
-        )
-    spec = spectrogram(x, nperseg=nperseg, hop=hop)
+    `precision="default"` is the reduced-precision opt-in: the TF32 kernel
+    where `pallas_eligible`, the exact path elsewhere (`spectrogram`)."""
+    spec = spectrogram(x, nperseg=nperseg, hop=hop, precision=precision)
     frames, n_freq = spec.shape[-2], spec.shape[-1]
     spec = spec.reshape(-1, frames, n_freq)
     per_channel = frames // window_rows

@@ -183,3 +183,33 @@ def test_latent_dtypes(blobs, dtype, want):
     x = (blobs[0] * 10).astype(dtype)
     _, centers = cluster.kmeans(x, 5, n_init=2, max_iter=20)
     assert centers.dtype == want
+
+
+def test_numpy_latents_go_to_the_default_device(blobs):
+    """A numpy input lands on `resolve_device(None)`, the card when there
+    is one (as `silhouette_samples` does); a tensor stays where it is."""
+    from spectrogram_cube_clustering_tpu_torch.cluster.kmeans import (
+        as_latents,
+    )
+    from spectrogram_cube_clustering_tpu_torch.core.device import (
+        resolve_device,
+    )
+
+    z = as_latents(blobs[0])
+    assert z.device == resolve_device(None)
+    assert z.dtype == torch.float32
+    t = torch.from_numpy(blobs[0])
+    assert as_latents(t).device == t.device
+
+
+def test_explicit_cpu_device_still_works(blobs):
+    from spectrogram_cube_clustering_tpu_torch.cluster.kmeans import (
+        as_latents,
+    )
+
+    assert as_latents(blobs[0], device="cpu").device.type == "cpu"
+    labels, centers = cluster.kmeans(blobs[0], 5, n_init=2, max_iter=20,
+                                     device="cpu")
+    assert labels.device.type == centers.device.type == "cpu"
+    labels, means = cluster.gmm(blobs[0], 5, n_init=2, device="cpu")
+    assert labels.device.type == means.device.type == "cpu"

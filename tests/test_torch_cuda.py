@@ -1,6 +1,7 @@
-"""The torch port on the card: the CUDA STFT kernel against its plain
-version, and the serving and training slices and the CLI (`build-cube`,
-`run-dc`) on CUDA against the same on the CPU.
+"""The torch port on the card: the CUDA STFT kernel and its precision and
+interior variants against their plain versions, and the serving and
+training slices and the CLI (`build-cube`, `run-dc`) on CUDA against the
+same on the CPU.
 
 Every test here needs an NVIDIA GPU (the kernel has no CPU mode) and skips
 itself without one. The file imports neither jax nor the JAX package, and
@@ -24,7 +25,13 @@ from spectrogram_cube_clustering_tpu_torch import (
     workflow,
 )
 from spectrogram_cube_clustering_tpu_torch.core.device import tf32_flags
+from spectrogram_cube_clustering_tpu_torch.experiments import (
+    stft_decompose,
+    stft_isolate,
+    stft_precision,
+)
 from spectrogram_cube_clustering_tpu_torch.ops import cuda_stft
+from spectrogram_cube_clustering_tpu_torch.ops import cuda_stft_variants as stv
 from spectrogram_cube_clustering_tpu_torch.signal import stft
 
 pytestmark = pytest.mark.cuda
@@ -183,7 +190,7 @@ def test_gmm_em_on_card_matches_cpu(cuda_device):
          + rng.normal(size=(4000, 9))).astype(np.float32)
     means0 = z[rng.choice(4000, 5, replace=False)]
     weights0 = np.full(5, 0.2, np.float32)
-    want_labels, want = cluster.gmm_em(z, weights0, means0)
+    want_labels, want = cluster.gmm_em(z, weights0, means0, device="cpu")
     got_labels, got = cluster.gmm_em(z, weights0, means0, device=cuda_device)
     assert got.means.is_cuda and got.n_iter == want.n_iter
     assert torch.equal(got_labels.cpu(), want_labels)
@@ -301,3 +308,99 @@ def test_run_dc_on_card_matches_cpu(cuda_device, tmp_path):
     np.testing.assert_allclose(out["card"][0], out["cpu"][0], rtol=1e-3)
     np.testing.assert_allclose(out["card"][1], out["cpu"][1], rtol=0,
                                atol=1e-3)
+
+
+def _frame_scale(x, rows):
+    """sum |x * w| of each of `rows` frames of the zero-padded x, (B, rows,
+    1): the size of c's float32 rounding (a frame of zeros: 1e-30)."""
+    need = (rows - 1) * 100 + 200
+    xp = torch.nn.functional.pad(x.double(), (0, max(0, need - x.shape[-1])))
+    win = torch.from_numpy(stft.np_hann(200)).to(x.device)
+    return (stft.frame(xp[:, :need], 200, 100).abs() * win).sum(
+        -1, True).clamp_min(1e-30)
+
+
+@pytest.mark.parametrize("layout", ["narrow", "padded"])
+@pytest.mark.parametrize("epilogue", stv.EPILOGUES)
+@pytest.mark.parametrize("fmt", stv.FORMATS)
+def test_variant_kernel_matches_plain(cuda_device, fmt, epilogue, layout):
+    """Same rounded operands, float32 sums in another order: p99.9 of the
+    log10 gap within 1e-4 (log, and power through log10); c within 1e-5
+    of its frame's sum |x * w|."""
+    x = _randn((2, 30_099), cuda_device)
+    kw = dict(rows=512, lanes=128) if layout == "padded" else {}
+    key = stv.variant_key(fmt, epilogue, layout == "padded")
+    before = stv.LAUNCHES.get(key, 0)
+    got = stv.stft_variant_cuda(x, fmt=fmt, epilogue=epilogue, **kw)
+    torch.cuda.synchronize()
+    assert stv.LAUNCHES[key] == before + 1
+    want = stv.stft_variant_plain(x, fmt=fmt, epilogue=epilogue, **kw)
+    assert got.shape == want.shape == ((2, 512, 128) if kw else (2, 299, 101))
+    assert bool(torch.isfinite(got).all())
+    if epilogue == "c":
+        gap = (got - want).abs().double() / _frame_scale(x, got.shape[1])
+        assert float(gap.max()) <= 1e-5
+    else:
+        if epilogue == "power":
+            got, want = torch.log10(got), torch.log10(want)
+        gap = (got - want).abs().flatten().double()
+        assert float(torch.quantile(gap, 0.999)) <= 1e-4
+
+
+@pytest.mark.parametrize("fpb", [256, 1024])
+def test_passthrough_kernel_is_bit_equal(cuda_device, fpb):
+    x = _randn((1, 30_099), cuda_device)
+    rows = stft_isolate.rows_padded(30_099, fpb)
+    before = stv.LAUNCHES.get(stv.PASSTHROUGH, 0)
+    got = stv.passthrough_cuda(x, 100, 2, rows, 128)
+    torch.cuda.synchronize()
+    assert stv.LAUNCHES[stv.PASSTHROUGH] == before + 1
+    assert torch.equal(got, stv.passthrough_plain(x, 100, 2, rows, 128))
+
+
+def test_default_precision_launches_the_tf32_kernel(cuda_device):
+    x = _randn((3, 40_000), cuda_device)
+    key = stv.variant_key("tf32", "log")
+    before, k1 = stv.LAUNCHES.get(key, 0), cuda_stft.LAUNCHES
+    got = stft.spectrogram_windows(x, precision="default", transform=None)
+    assert stv.LAUNCHES[key] == before + 1 and cuda_stft.LAUNCHES == k1
+    want = stft.spectrogram_windows(x.cpu(), precision="default",
+                                    transform=None)
+    gap = (got.cpu() - want).abs().flatten().double()
+    assert float(torch.quantile(gap, 0.999)) <= 1e-4
+
+
+@pytest.mark.parametrize("name,fn,key", [
+    ("folded_HIGHEST", lambda x: stft_precision.spectrogram_folded(x),
+     "f32/log/narrow"),
+    ("folded_DEFAULT", lambda x: stft_precision.spectrogram_folded(
+        x, precision="default"), "tf32/log/narrow"),
+    ("folded_bf16x3", lambda x: stft_precision.spectrogram_folded_b3(x),
+     "bf16x3/log/narrow"),
+    ("isolate_default", lambda x: stft_isolate.pipeline(x[0], "default"),
+     "tf32/log/padded"),
+    ("isolate_passthrough", lambda x: stft_isolate.pipeline(
+        x[0], "passthrough"), "passthrough"),
+    ("decompose_nopow", lambda x: stft_decompose.variant(x, "nopow"),
+     "f32/c/narrow"),
+])
+def test_experiments_launch_their_kernels(cuda_device, name, fn, key):
+    x = _randn((1, 20_000), cuda_device)
+    before = stv.LAUNCHES.get(key, 0)
+    got = fn(x)
+    assert got.is_cuda and stv.LAUNCHES[key] == before + 1, name
+    want = fn(x.cpu())
+    assert got.shape == want.shape
+
+
+def test_kmeans_and_gmm_of_numpy_latents_run_on_the_card(cuda_device):
+    """Numpy latents go to the default device, the card, as the JAX
+    functions run on the default device."""
+    rng = np.random.default_rng(2)
+    centers = rng.normal(scale=6.0, size=(5, 9))
+    z = (centers[rng.integers(0, 5, 2000)]
+         + rng.normal(size=(2000, 9))).astype(np.float32)
+    labels, cents = cluster.kmeans(z, 5, n_init=4, max_iter=100)
+    assert labels.is_cuda and cents.is_cuda
+    labels, means = cluster.gmm(z, 5, n_init=4)
+    assert labels.is_cuda and means.is_cuda

@@ -131,9 +131,12 @@ def test_spectrogram_windows_match_jax(rng, shape, transform):
 
 
 def test_spectrogram_windows_precision_surface():
+    """precision="default" is the TF32 opt-in (its values are held to JAX
+    in tests/test_torch_stft_precision.py); other values raise."""
     x = torch.zeros(1_000)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        stft.spectrogram_windows(x, precision="default")
+    got = stft.spectrogram_windows(x, precision="default", transform=None)
+    want = stft.spectrogram_windows(x, transform=None)
+    assert got.shape == want.shape == (2, 4, 101, 1)
     with pytest.raises(ValueError, match="precision"):
         stft.spectrogram_windows(x, precision="fast")
     with pytest.raises(ValueError, match="unknown transform"):
