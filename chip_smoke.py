@@ -1,5 +1,5 @@
-"""Drive the torch port's serving, training and CLI workflow paths once on
-one NVIDIA GPU, and check them.
+"""Drive the torch port's serving, training, CLI workflow and STFT
+experiment paths once on one NVIDIA GPU, and check them.
 
     python3 chip_smoke.py [--seed N]
 
@@ -65,6 +65,27 @@ the script exits non-zero:
    against the oracle and K1, and each kernel's time, its plain
    version's, its library call's (`torch.stft` in float32, then |.|^2
    and log10; a shifted add for the passthrough) and its bound;
+4e. layouts: the STFT layout kernels (`csrc/stft_layout.cu`) through
+   their entry points at the scripts' default blocks: K6 raw-read
+   (`experiments.stft_rawread.rawread`, every frame), K7 narrow-out
+   (`experiments.stft_outslice.spectrogram_narrow`) and K8 fused-basis
+   (`experiments.stft_fusedbasis.fused`, its frames_main frames). Each is
+   held against its plain version on the same CUDA tensors at 200,000
+   and 4,000,000 samples and three ragged lengths (K8's frames_main just
+   above one block, K6's old tail longer than a block): p99.9 of the gap
+   within 1e-4, the largest error against the float64 oracle within
+   max(2e-3, 1.5 x the plain version's), K8's shape its frames_main.
+   Each entry point, run at 4,000,000 samples with the counts at 0, must
+   launch its own kernel once, and neither K1 nor a variant kernel.
+   Prints each kernel's time, its plain version's, its library call's
+   (`torch.stft` in float32, then |.|^2 and log10), the FP32 variant
+   kernel's (`stft_f32_kernel`) on the same input, and its bound;
+4f. loose precision: `experiments.stft_loose_precision.main` on the card
+   at the script's sizes (K1 `highest` against `precision="default"`:
+   throughput at 4,000,000 samples, their gap at 400,000, and AEC ->
+   k-means NMI of a planted-class waveform's windows from each); K1 and
+   the TF32 kernel must launch and its JSON hold every key. The NMIs are
+   printed, not gated;
 5. times: kernel, plain STFT and the library call (`torch.stft` in
    float64, |.|^2, log10) at (16, 2^20) with CUDA events, the kernel's
    bound (an FFT's FP64 operations and the HBM bytes at the H100 SXM
@@ -134,6 +155,24 @@ VARIANTS = [
     ("decompose_full", "benchmarks/stft_decompose_tpu.py:62", "f32", "log",
      False),
 ]
+#: (name, TPU kernel replaced) of the layout kernels, phase 4e
+LAYOUTS = [
+    ("rawread", "benchmarks/stft_rawread_tpu.py:50"),
+    ("outslice", "benchmarks/stft_outslice_tpu.py:34"),
+    ("fusedbasis", "benchmarks/stft_fusedbasis_tpu.py:45"),
+]
+LAYOUT_MAIN = 4_000_000  # the scripts' timed input, a 1-D waveform
+# the scripts' accuracy size, the timed size and three ragged lengths:
+# K8's frames_main just above one block of 512, K6's old tail (frames
+# past frames_main) of 518 frames, longer than a block, and a long one
+LAYOUT_LENGTHS = [200_000, LAYOUT_MAIN, 52_050, 103_150, 1_234_567]
+LOOSE_KEYS = {
+    "throughput_highest_gsamples", "throughput_default_gsamples", "speedup",
+    "err_random_max", "err_random_p999", "err_planted_max",
+    "err_planted_p999", "cluster_highest_nmi", "cluster_highest_loss",
+    "cluster_default_nmi", "cluster_default_loss",
+    "cluster_label_agreement_nmi", "device",
+}
 GEOMETRIES = [  # (nperseg, hop, waveform shape)
     (200, 100, (1, 200)), (200, 100, (1, 950)), (200, 100, (1, 1_100)),
     (200, 100, (1, 60_000)), (200, 100, (1, 1 << 20)),
@@ -262,22 +301,6 @@ def check_answer(name: str, got: dict, want: dict, n: int) -> None:
     check(agree, f"{name} labels")
 
 
-def nmi(a: np.ndarray, b: np.ndarray) -> float:
-    """Normalized mutual information, arithmetic-mean normalization (what
-    sklearn's normalized_mutual_info_score computes by default)."""
-    a = np.unique(a, return_inverse=True)[1]
-    b = np.unique(b, return_inverse=True)[1]
-    joint = np.zeros((a.max() + 1, b.max() + 1))
-    np.add.at(joint, (a, b), 1.0)
-    joint /= joint.sum()
-    pa, pb = joint.sum(1), joint.sum(0)
-    nz = joint > 0
-    mi = float((joint[nz] * np.log(joint[nz] / np.outer(pa, pb)[nz])).sum())
-    ha = -float((pa[pa > 0] * np.log(pa[pa > 0])).sum())
-    hb = -float((pb[pb > 0] * np.log(pb[pb > 0])).sum())
-    return 1.0 if ha + hb == 0 else mi / ((ha + hb) / 2)
-
-
 def cpu_against_card(sd_aec, sd_dec, x, labels, centroids) -> float:
     """One AEC epoch and one DEC epoch with a refresh half-way from the
     same weights on the CPU and on the card; returns the largest relative
@@ -332,6 +355,7 @@ def phase_training(device, gen, card, cuda_stft, spectrogram_plain,
     import types
 
     from spectrogram_cube_clustering_tpu_torch import cluster, models, train
+    from spectrogram_cube_clustering_tpu_torch.cluster import nmi
     from spectrogram_cube_clustering_tpu_torch.data import train_val_split
     from spectrogram_cube_clustering_tpu_torch.workflow import (
         load_data,
@@ -654,6 +678,8 @@ def run_five_stages(root: str, universal: dict, card: str, name: str):
 def check_dec_predict(pred: str, truth: np.ndarray, name: str) -> float:
     """NMI of the DEC-predict labels against the planted kinds (gate
     0.90), q's rows summing to 1, one metrics row per cluster."""
+    from spectrogram_cube_clustering_tpu_torch.cluster import nmi
+
     labels = np.load(os.path.join(pred, "labels_DEC.npy"))
     q = np.load(os.path.join(pred, "q_DEC.npy"))
     check(labels.shape == truth.shape, f"{name} labels {labels.shape}")
@@ -991,6 +1017,182 @@ def phase_variants(device, gen, card, cuda_stft, spectrogram_windows):
     return entries
 
 
+def phase_layouts(device, gen, card, cuda_stft):
+    """Phase 4e: the STFT layout kernels (K6-K8) against their plain
+    versions and a float64 oracle, the path through their entry points,
+    and the times. Returns the kernels line's entries."""
+    from spectrogram_cube_clustering_tpu_torch.experiments import (
+        stft_fusedbasis,
+        stft_outslice,
+        stft_rawread,
+    )
+    from spectrogram_cube_clustering_tpu_torch.ops import (
+        cuda_stft_layout as stl,
+    )
+    from spectrogram_cube_clustering_tpu_torch.ops import (
+        cuda_stft_variants as stv,
+    )
+
+    entries = {  # the scripts' entry points at their default blocks
+        "rawread": stft_rawread.rawread,
+        "outslice": stft_outslice.spectrogram_narrow,
+        "fusedbasis": stft_fusedbasis.fused,
+    }
+
+    def n_out(name, t):
+        """The frames of an entry point's output for t samples."""
+        if name == "fusedbasis":
+            return stl.frames_main(t, 100, 512, stl.fused_halo(200, 100))
+        return (t - 200) // 100 + 1
+
+    # kernel against plain and the float64 oracle at each length
+    worst = {}
+    for name, _ in LAYOUTS:
+        worst[name] = 0.0
+        for t in LAYOUT_LENGTHS:
+            x = torch.randn((t,), generator=gen, device=device)
+            got = entries[name](x)
+            torch.cuda.synchronize()
+            want = stl.stft_layout_plain(x, n_out=got.shape[0], layout=name)
+            check(got.shape == (n_out(name, t), 101) == want.shape,
+                  f"{name} {t} shape {tuple(got.shape)}")
+            check(bool(torch.isfinite(got).all()), f"{name} {t} finite")
+            ref = variant_oracle(x[None], 200, 100, "log")[0][0, :len(got)]
+            diff = (got - want).abs()
+            gap, q = float(diff.max()), p999(diff)
+            k_err = float((got.double() - ref).abs().max())
+            p_err = float((want.double() - ref).abs().max())
+            limit = max(STFT_ATOL, 1.5 * p_err)
+            tail = ""
+            if name == "rawread":
+                old = len(got) - stl.frames_main(t, 100, 512, stl.HALO)
+                tail = f", K6's old tail {old} frames"
+            print(f"layout {name} ({t},) -> {tuple(got.shape)}{tail}: vs "
+                  f"plain max {gap:.3e} p99.9 {q:.3e}; vs float64 kernel "
+                  f"{k_err:.3e} plain {p_err:.3e} (limit {limit:.3e})",
+                  flush=True)
+            check(q <= VARIANT_P999, f"{name} {t} p99.9 {q}")
+            check(k_err <= limit, f"{name} {t} vs float64 {k_err}")
+            worst[name] = max(worst[name], gap)
+            del x, got, want, ref, diff
+
+    # the path: each entry point at LAYOUT_MAIN samples with the counts at
+    # 0 just before it
+    x = torch.randn((LAYOUT_MAIN,), generator=gen, device=device)
+    launches = {}
+    for name, _ in LAYOUTS:
+        stl.LAUNCHES.clear()  # this entry point's run starts here
+        stv.LAUNCHES.clear()
+        cuda_stft.LAUNCHES = 0
+        out = entries[name](x)
+        torch.cuda.synchronize()
+        counts, others = dict(stl.LAUNCHES), dict(stv.LAUNCHES)
+        k1 = cuda_stft.LAUNCHES  # ... and ends here
+        launches[name] = counts.get(name, 0)
+        print(f"layout path {name}: out {tuple(out.shape)}, launches "
+              f"{counts}, variants {others}, K1 {k1}", flush=True)
+        check(counts == {name: 1} and not others and k1 == 0,
+              f"{name} path launches {counts}, variants {others}, K1 {k1}")
+        check(out.shape == (n_out(name, LAYOUT_MAIN), 101)
+              and bool(torch.isfinite(out).all()), f"{name} path output")
+    del out
+
+    # times at the path's input, beside the plain version, the library
+    # call, the FP32 variant kernel (stft_f32_kernel) and the bound
+    win32 = torch.hann_window(200, periodic=True, device=device)
+
+    def library(v):
+        s = torch.stft(v, n_fft=200, hop_length=100, window=win32,
+                       center=False, return_complex=True)
+        return torch.log10(s.real.square() + s.imag.square() + 1e-12)
+
+    result = []
+    for name, replaces in LAYOUTS:
+        frames = n_out(name, LAYOUT_MAIN)
+        # the samples those frames read: K8 covers only frames_main
+        v = x[:(frames - 1) * 100 + 200]
+        ms = cuda_ms(lambda: stl.stft_layout_cuda(x, n_out=frames,
+                                                  layout=name))
+        plain_ms = cuda_ms(lambda: stl.stft_layout_plain(x, n_out=frames,
+                                                         layout=name))
+        library_ms = cuda_ms(lambda: library(v))
+        f32_ms = cuda_ms(lambda: stv.stft_variant_cuda(v[None], fmt="f32",
+                                                       epilogue="log"))
+        ms2 = cuda_ms(lambda: stl.stft_layout_cuda(x, n_out=frames,
+                                                   layout=name))
+        # each input byte read once (the whole waveform is the input), each
+        # output byte written once; an FFT's FP32 operations per frame, as
+        # phase 4d counts them
+        flop = frames * (200 + 2.5 * 200 * np.log2(200) + 4 * 101)
+        nbytes = 4 * (LAYOUT_MAIN + frames * 101)
+        ops_ms = flop / PIPE_PEAK["f32"] * 1e3
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ms = max(ops_ms, bytes_ms)
+        bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+        print(f"layout {name} ({LAYOUT_MAIN},) -> ({frames}, 101) on {card}: "
+              f"kernel {ms:.4f} / {ms2:.4f} ms "
+              f"({LAYOUT_MAIN / ms / 1e6:.3f} G samples/s), plain "
+              f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, FP32 variant "
+              f"kernel {f32_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} "
+              f"({flop:.4e} FLOP = {ops_ms:.4f} ms; {nbytes} bytes = "
+              f"{bytes_ms:.4f} ms), kernel at {bound_ms / ms:.1%} of it",
+              flush=True)
+        result.append({
+            "name": name,
+            "route": "cuda",
+            "source": "spectrogram_cube_clustering_tpu_torch/csrc/"
+                      "stft_layout.cu",
+            "replaces": replaces,
+            "launches": launches[name],
+            "max_abs_err": worst[name],
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": library_ms,
+            "f32_variant_ms": f32_ms,
+        })
+    return result
+
+
+def phase_loose_precision(cuda_stft) -> dict:
+    """Phase 4f: the loose-precision A/B through its entry point on the
+    card at the script's sizes; K1 and the TF32 kernel must launch and
+    the JSON hold every key. Its NMIs are printed, not gated."""
+    import contextlib
+
+    from spectrogram_cube_clustering_tpu_torch.experiments import (
+        stft_loose_precision,
+    )
+    from spectrogram_cube_clustering_tpu_torch.ops import (
+        cuda_stft_variants as stv,
+    )
+
+    stv.LAUNCHES.clear()  # the A/B's run starts here
+    cuda_stft.LAUNCHES = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = stft_loose_precision.main([])
+    wall = time.perf_counter() - t0
+    k1, tf32 = cuda_stft.LAUNCHES, stv.LAUNCHES.get("tf32/log/narrow", 0)
+    lines = buf.getvalue().strip().splitlines()  # ... and ends here
+    for line in lines:
+        print(f"  loose precision: {line}", flush=True)
+    out = json.loads(lines[-1])
+    print(f"loose precision A/B: {wall:.1f} s, K1 launches {k1}, TF32 kernel "
+          f"launches {tf32}; NMI vs planted highest "
+          f"{out['cluster_highest_nmi']:.4f}, default "
+          f"{out['cluster_default_nmi']:.4f}, between the label sets "
+          f"{out['cluster_label_agreement_nmi']:.4f} (TPU's, one seed: "
+          f"0.9193)", flush=True)
+    check(rc == 0, f"loose precision rc {rc}")
+    check(k1 >= 1 and tf32 >= 1, f"loose precision launches K1 {k1}, "
+          f"TF32 {tf32}")
+    check(set(out) == LOOSE_KEYS, f"loose precision keys {sorted(out)}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1131,6 +1333,10 @@ def main() -> int:
     # 4d. the STFT precision and interior variants
     variant_entries = phase_variants(device, gen, card, cuda_stft,
                                      spectrogram_windows)
+    # 4e. the STFT layout kernels
+    layout_entries = phase_layouts(device, gen, card, cuda_stft)
+    # 4f. the loose-precision A/B
+    phase_loose_precision(cuda_stft)
 
     # 5. times: kernel, plain version and the library call (cuFFT through
     # torch.stft in float64, then |.|^2 and log10) on the same input
@@ -1190,7 +1396,7 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": library_ms,
-    }] + variant_entries}), flush=True)
+    }] + variant_entries + layout_entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -14,6 +14,7 @@ from spectrogram_cube_clustering_tpu_torch.cluster.kmeans import (  # noqa: F401
 )
 from spectrogram_cube_clustering_tpu_torch.cluster.metrics import (  # noqa: F401
     cluster_metrics,
+    nmi,
     silhouette_samples_X,
 )
 from spectrogram_cube_clustering_tpu_torch.cluster.silhouette import (  # noqa: F401
@@ -22,5 +23,5 @@ from spectrogram_cube_clustering_tpu_torch.cluster.silhouette import (  # noqa: 
 
 __all__ = [
     "GMMState", "cluster_metrics", "gmm", "gmm_em", "gmm_predict", "kmeans",
-    "lloyd", "silhouette_samples", "silhouette_samples_X",
+    "lloyd", "nmi", "silhouette_samples", "silhouette_samples_X",
 ]

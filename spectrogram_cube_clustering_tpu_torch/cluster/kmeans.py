@@ -33,9 +33,9 @@ from spectrogram_cube_clustering_tpu_torch.ops.student_t import (
 
 def as_latents(z, device=None) -> torch.Tensor:
     """(M, D) float32 or float64 tensor on `device`. By default a tensor
-    stays where it is and anything else goes to the card when there is
-    one, else the CPU (as `silhouette_samples` does); TF32 off when that
-    is a card."""
+    stays where it is and anything else goes to the card, raising when
+    there is none (as `silhouette_samples` does; the CPU only when asked);
+    TF32 off when that is a card."""
     if device is None and isinstance(z, torch.Tensor):
         device = z.device
     z = torch.as_tensor(z, device=resolve_device(device))

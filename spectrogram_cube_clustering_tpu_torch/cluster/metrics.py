@@ -29,6 +29,26 @@ _COLUMNS = ("class", "N", "inner_product", "MSE_avg", "MAE_avg",
             "silh_score_Z", "silh_score_X")
 
 
+def nmi(a, b) -> float:
+    """Normalized mutual information of two label sets with the
+    arithmetic-mean normalization (what sklearn's
+    `normalized_mutual_info_score` computes by default; the card's machine
+    has no sklearn)."""
+    a = np.unique(np.asarray(a), return_inverse=True)[1]
+    b = np.unique(np.asarray(b), return_inverse=True)[1]
+    joint = np.zeros((a.max() + 1, b.max() + 1))
+    np.add.at(joint, (a, b), 1.0)
+    joint /= joint.sum()
+    pa, pb = joint.sum(1), joint.sum(0)
+    nz = joint > 0
+    mi = float((joint[nz] * np.log(joint[nz] / np.outer(pa, pb)[nz])).sum())
+    ha = -float((pa[pa > 0] * np.log(pa[pa > 0])).sum())
+    hb = -float((pb[pb > 0] * np.log(pb[pb > 0])).sum())
+    if ha == 0.0 or hb == 0.0:
+        return 1.0 if ha == hb else 0.0
+    return max(mi, 0.0) / ((ha + hb) / 2)
+
+
 def _silhouette_or_nan(x, labels, n_clusters: int, context: str,
                        device=None) -> np.ndarray:
     """silhouette_samples as numpy, or NaN scores (said aloud) when fewer

@@ -25,8 +25,8 @@ def silhouette_samples(
     x, labels, n_clusters: int, *, chunk: int = 2048, device=None
 ) -> torch.Tensor:
     """Per-sample silhouette scores (M,) float32 for x (M, ...) and labels
-    (M,), on `device` (default: the card when there is one, else the
-    CPU). Raises unless 2 to M - 1 clusters are populated, as sklearn
+    (M,), on `device` (default: x's device for a tensor, else the card;
+    the CPU only when asked). Raises unless 2 to M - 1 clusters are populated, as sklearn
     does."""
     if device is None and isinstance(x, torch.Tensor):
         device = x.device

@@ -9,11 +9,10 @@ import torch
 
 
 def resolve_device(name: Union[str, torch.device, None] = None) -> torch.device:
-    """An explicit torch.device. None means "cuda" when a card is present,
-    else "cpu"; asking for a CUDA device that does not exist raises."""
-    if name is None:
-        name = "cuda" if torch.cuda.is_available() else "cpu"
-    dev = torch.device(name)
+    """An explicit torch.device. None means the card: with no usable card
+    it raises as asking for "cuda" does, and the CPU is reached only when
+    a caller names it."""
+    dev = torch.device("cuda" if name is None else name)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(f"device {dev} requested but CUDA is not available")

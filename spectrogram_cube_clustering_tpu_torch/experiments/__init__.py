@@ -7,11 +7,21 @@ Hopper kernels.
 - `stft_isolate` (`benchmarks/stft_isolate_tpu.py`): K4's passthrough,
   DEFAULT and HIGHEST pipelines with the TPU kernel's padded output;
 - `stft_decompose` (`benchmarks/stft_decompose_tpu.py`): K5's stages, c
-  only, power without log and full, and the staging relayout alone.
+  only, power without log and full, and the staging relayout alone;
+- `stft_rawread` (`benchmarks/stft_rawread_tpu.py`): K6, the waveform read
+  as hop-sample rows in the kernel, every frame in one launch;
+- `stft_outslice` (`benchmarks/stft_outslice_tpu.py`): K7, the narrow
+  (n_frames, 101) output written by the kernel;
+- `stft_fusedbasis` (`benchmarks/stft_fusedbasis_tpu.py`): K8, K6 with cos
+  and sin in one basis tile, the script's `frames_main` frames;
+- `stft_loose_precision` (`benchmarks/stft_loose_precision_tpu.py`): K1 at
+  `highest` against `precision="default"`, in throughput, in error and in
+  the clustering of a planted-class waveform's windows.
 
 Each module's functions take their device from the input tensor; each
-`main()` runs on the card by default and on the plain versions with
-`--device cpu`, and prints the script's JSON as its last line:
+`main()` runs on the card unless `--device cpu` asks for the CPU (the
+plain versions; with no card and no `--device cpu` it raises), and
+prints the script's JSON as its last line:
 
     python -m spectrogram_cube_clustering_tpu_torch.experiments.stft_precision
     python -m spectrogram_cube_clustering_tpu_torch.experiments.stft_isolate --device cpu
@@ -76,7 +86,7 @@ def parser(description: str, samples: int) -> argparse.ArgumentParser:
     """The options every experiment takes."""
     ap = argparse.ArgumentParser(description=description)
     ap.add_argument("--device", default=None,
-                    help="cuda (default when a card is present) or cpu")
+                    help="cuda (the default: raises without a card) or cpu")
     ap.add_argument("--samples", type=int, default=samples,
                     help="waveform samples of the timed input")
     ap.add_argument("--reps", type=int, default=20,

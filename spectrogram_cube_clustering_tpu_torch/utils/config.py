@@ -5,8 +5,9 @@ A copy of the JAX package's `utils/config.py` (reference Cluster/utils.py
 
 - serials come from the local clock alone (no multi-process agreement:
   the port runs one process);
-- `set_device` picks a `torch.device`: the card by default, the CPU or a
-  card index when asked, by argument or by a `device` key in the ini.
+- `set_device` picks a `torch.device`: the card by default (it raises
+  when there is none), the CPU or a card index when asked, by argument or
+  by a `device` key in the ini.
 
 `.ini` files hold UNIVERSAL / PARAMETERS / HYPERPARAMETERS sections; every
 HYPERPARAMETERS value parses as a comma-separated sweep list whose
@@ -273,8 +274,8 @@ class Configuration:
     ) -> torch.device:
         """Resolve the torch device (reference set_device,
         utils.py:190-200): `device`, else the ini's `device` key, else the
-        card when there is one. An int (or a string of digits) is a card
-        index; "cpu" asks for the CPU."""
+        card (raising when there is none: the CPU only when asked). An int
+        (or a string of digits) is a card index; "cpu" asks for the CPU."""
         if device is None:
             device = getattr(self, "device", None)
         if isinstance(device, int) or (

@@ -15,7 +15,7 @@ Sources (`datafiletype`):
   `config.device`, which launches the CUDA STFT kernel on a card; the
   split permutes windows, as the JAX package does.
 
-The windows land on `config.device` (default: the card when there is one);
+The windows land on `config.device` (default: the card; the CPU only when asked);
 normalization comes later (`workflow.train._normalize`). The seconds the
 source read took (Zarr decode or `.npy` load and STFT, with the copy to
 the device) are kept in `config.load_seconds`. `datafiletype = h5` raises:

@@ -62,6 +62,14 @@ def make_model(
         )
     if precision not in (None, "default"):
         raise ValueError(f"unknown precision {precision!r}")
+    arch = getattr(config, "arch", None) or "AEC"
+    if arch in ("packed", "UNet"):
+        raise NotImplementedError(
+            f"arch={arch!r} is not ported yet: ROADMAP Queue 1 item 8 "
+            "(other architectures)"
+        )
+    if arch != "AEC":
+        raise ValueError(f"unknown arch {arch!r}")
     device = resolve_device(getattr(config, "device", None))
     fp32_policy_for(device)
     kw = dict(
@@ -72,14 +80,6 @@ def make_model(
     hw = getattr(config, "input_hw", None)
     if hw is not None:
         kw["input_hw"] = (int(hw[0]), int(hw[1]))
-    arch = getattr(config, "arch", None) or "AEC"
-    if arch in ("packed", "UNet"):
-        raise NotImplementedError(
-            f"arch={arch!r} is not ported yet: ROADMAP Queue 1 item 8 "
-            "(other architectures)"
-        )
-    if arch != "AEC":
-        raise ValueError(f"unknown arch {arch!r}")
     if config.model == "DEC" or n_clusters is not None:
         k = int(n_clusters or config.n_clusters)
         return _models.DEC(n_clusters=k, **kw)

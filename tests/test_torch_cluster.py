@@ -105,7 +105,8 @@ def test_tol_uses_population_variance(blobs):
 
 def test_kmeans_matches_jax_and_sklearn(blobs):
     x, y = blobs
-    labels, centers = cluster.kmeans(x, 5, n_init=10, max_iter=100)
+    labels, centers = cluster.kmeans(x, 5, n_init=10, max_iter=100,
+                                     device="cpu")
     assert labels.dtype == torch.int32 and centers.shape == (5, 9)
     labels = labels.numpy()
     with _f32():
@@ -122,8 +123,9 @@ def test_kmeans_matches_jax_and_sklearn(blobs):
 def test_kmeans_deterministic_and_inertia(blobs):
     x, _ = blobs
     l1, c1, inertia = cluster.kmeans(x, 5, n_init=4, max_iter=50, seed=7,
-                                     return_inertia=True)
-    l2, c2 = cluster.kmeans(x, 5, n_init=4, max_iter=50, seed=7)
+                                     return_inertia=True, device="cpu")
+    l2, c2 = cluster.kmeans(x, 5, n_init=4, max_iter=50, seed=7,
+                            device="cpu")
     assert torch.equal(l1, l2) and torch.equal(c1, c2)
     d2 = ((x[:, None] - c1.numpy()[None]) ** 2).sum(-1)
     np.testing.assert_allclose(float(inertia), d2.min(axis=1).sum(),
@@ -140,7 +142,7 @@ def test_gmm_em_from_given_init_matches_jax(blobs, k):
     weights0 = np.full(k, 1.0 / k, np.float32)
     with _f32():
         jl, js = jcluster.gmm_em(x, weights0, means0)
-    labels, state = cluster.gmm_em(x, weights0, means0)
+    labels, state = cluster.gmm_em(x, weights0, means0, device="cpu")
     assert labels.dtype == torch.int32
     assert state.n_iter == int(js.n_iter)
     assert state.converged == bool(js.converged)
@@ -156,7 +158,8 @@ def test_gmm_em_from_given_init_matches_jax(blobs, k):
 
 def test_gmm_matches_jax_and_sklearn(blobs):
     x, y = blobs
-    labels, means = cluster.gmm(x, 5, n_init=10, kmeans_max_iter=100)
+    labels, means = cluster.gmm(x, 5, n_init=10, kmeans_max_iter=100,
+                                device="cpu")
     assert means.shape == (5, 9)
     labels = labels.numpy()
     with _f32():
@@ -171,8 +174,8 @@ def test_gmm_predict_matches_fit_labels(blobs):
     x, _ = blobs
     rng = np.random.default_rng(5)
     labels, state = cluster.gmm_em(
-        x, np.full(5, 0.2, np.float32), x[rng.choice(len(x), 5, replace=False)]
-    )
+        x, np.full(5, 0.2, np.float32), x[rng.choice(len(x), 5, replace=False)],
+        device="cpu")
     assert torch.equal(cluster.gmm_predict(x, state), labels)
 
 
@@ -181,23 +184,27 @@ def test_gmm_predict_matches_fit_labels(blobs):
 def test_latent_dtypes(blobs, dtype, want):
     """Float64 latents stay float64; anything else becomes float32."""
     x = (blobs[0] * 10).astype(dtype)
-    _, centers = cluster.kmeans(x, 5, n_init=2, max_iter=20)
+    _, centers = cluster.kmeans(x, 5, n_init=2, max_iter=20, device="cpu")
     assert centers.dtype == want
 
 
 def test_numpy_latents_go_to_the_default_device(blobs):
-    """A numpy input lands on `resolve_device(None)`, the card when there
-    is one (as `silhouette_samples` does); a tensor stays where it is."""
+    """A numpy input goes to the default device, the card: with none it
+    raises (no silent CPU run), and it lands on the CPU only when asked;
+    a tensor stays where it is."""
     from spectrogram_cube_clustering_tpu_torch.cluster.kmeans import (
         as_latents,
     )
-    from spectrogram_cube_clustering_tpu_torch.core.device import (
-        resolve_device,
-    )
 
-    z = as_latents(blobs[0])
-    assert z.device == resolve_device(None)
-    assert z.dtype == torch.float32
+    if torch.cuda.is_available():
+        assert as_latents(blobs[0]).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            as_latents(blobs[0])
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cluster.kmeans(blobs[0], 5, n_init=2, max_iter=20)
+    z = as_latents(blobs[0], device="cpu")
+    assert z.device.type == "cpu" and z.dtype == torch.float32
     t = torch.from_numpy(blobs[0])
     assert as_latents(t).device == t.device
 
@@ -213,3 +220,15 @@ def test_explicit_cpu_device_still_works(blobs):
     assert labels.device.type == centers.device.type == "cpu"
     labels, means = cluster.gmm(blobs[0], 5, n_init=2, device="cpu")
     assert labels.device.type == means.device.type == "cpu"
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_nmi_matches_sklearn(seed):
+    """`cluster.nmi` (numpy: the card's machine has no sklearn) against
+    sklearn's default normalization, noisy and degenerate label sets."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, 5, 3_000)
+    b = np.where(rng.random(3_000) < 0.7, a, rng.integers(0, 6, 3_000))
+    zeros = np.zeros_like(a)
+    for u, v in ((a, b), (a, a), (a, zeros), (zeros, a), (zeros, zeros)):
+        assert cluster.nmi(u, v) == pytest.approx(nmi(u, v), abs=1e-12)

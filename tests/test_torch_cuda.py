@@ -1,5 +1,5 @@
-"""The torch port on the card: the CUDA STFT kernel and its precision and
-interior variants against their plain versions, and the serving and
+"""The torch port on the card: the CUDA STFT kernel and its precision,
+interior and layout variants against their plain versions, and the serving and
 training slices and the CLI (`build-cube`, `run-dc`) on CUDA against the
 same on the CPU.
 
@@ -27,10 +27,14 @@ from spectrogram_cube_clustering_tpu_torch import (
 from spectrogram_cube_clustering_tpu_torch.core.device import tf32_flags
 from spectrogram_cube_clustering_tpu_torch.experiments import (
     stft_decompose,
+    stft_fusedbasis,
     stft_isolate,
+    stft_outslice,
     stft_precision,
+    stft_rawread,
 )
 from spectrogram_cube_clustering_tpu_torch.ops import cuda_stft
+from spectrogram_cube_clustering_tpu_torch.ops import cuda_stft_layout as stl
 from spectrogram_cube_clustering_tpu_torch.ops import cuda_stft_variants as stv
 from spectrogram_cube_clustering_tpu_torch.signal import stft
 
@@ -404,3 +408,87 @@ def test_kmeans_and_gmm_of_numpy_latents_run_on_the_card(cuda_device):
     assert labels.is_cuda and cents.is_cuda
     labels, means = cluster.gmm(z, 5, n_init=4)
     assert labels.is_cuda and means.is_cuda
+
+
+#: the layout kernels through their entry points, at the scripts' geometry
+LAYOUT_ENTRIES = {
+    "rawread": lambda x: stft_rawread.rawread(x),
+    "outslice": lambda x: stft_outslice.spectrogram_narrow(x),
+    "fusedbasis": lambda x: stft_fusedbasis.fused(x, fpb=64),
+}
+
+
+@pytest.mark.parametrize("n", [30_099, 205_003])
+@pytest.mark.parametrize("layout", stl.LAYOUTS)
+def test_layout_kernel_matches_plain(cuda_device, layout, n):
+    """The same float32 operands and order of partials, float32 sums in
+    another order inside each: p99.9 of the log10 gap within 1e-4, and
+    against float64 within max(2e-3, 1.5 x the plain version's error)."""
+    x = _randn((n,), cuda_device)
+    before = stl.LAUNCHES.get(layout, 0)
+    got = LAYOUT_ENTRIES[layout](x)
+    torch.cuda.synchronize()
+    assert stl.LAUNCHES[layout] == before + 1
+    want = stl.stft_layout_plain(x, n_out=got.shape[0], layout=layout)
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    gap = (got - want).abs().flatten().double()
+    assert float(torch.quantile(gap, 0.999)) <= 1e-4
+    ref = stft_precision.f64_oracle(x)[:got.shape[0]]
+    k_err = float((got.double() - ref).abs().max())
+    p_err = float((want.double() - ref).abs().max())
+    assert k_err <= max(2e-3, 1.5 * p_err)
+
+
+@pytest.mark.parametrize("n,fpb,frames", [
+    (30_099, 64, 256), (12_345, 64, 64), (7_299, 64, 64),
+    (4_000_000, 512, 39_936), (4_000_000, 1024, 39_936),
+])
+def test_fusedbasis_returns_frames_main(cuda_device, n, fpb, frames):
+    got = stft_fusedbasis.fused(_randn((n,), cuda_device), fpb=fpb)
+    assert got.is_cuda and got.shape == (frames, 101)
+
+
+def test_layout_entry_points_launch_only_their_kernel(cuda_device):
+    """One launch of the entry point's own kernel: neither K1 nor the
+    variants' kernels, and no other layout."""
+    x = _randn((400_000,), cuda_device)
+    for layout, fn in LAYOUT_ENTRIES.items():
+        stl.LAUNCHES.clear()
+        k1, variants = cuda_stft.LAUNCHES, dict(stv.LAUNCHES)
+        out = fn(x)
+        assert out.is_cuda and stl.LAUNCHES == {layout: 1}, layout
+        assert cuda_stft.LAUNCHES == k1 and stv.LAUNCHES == variants
+
+
+@pytest.mark.parametrize("call", [
+    lambda x: stft_rawread.rawread(x, 250, 100),
+    lambda x: stft_rawread.rawread(x, 512, 256),
+    lambda x: stft_fusedbasis.fused(x, 250, 100, fpb=64),
+    lambda x: stft_fusedbasis.fused(x[:5_000], fpb=64),
+    lambda x: stft_rawread.rawread(x, fpb=60),
+    lambda x: stl.stft_layout_cuda(x, 256, 64, layout="outslice"),
+    lambda x: stl.stft_layout_cuda(x, n_out=1_000),
+], ids=["k6-250-100", "k6-hop256", "k8-250-100", "k8-no-block", "k6-fpb60",
+        "k7-geometry", "n_out"])
+def test_layout_bad_geometry_raises_before_launch(cuda_device, call):
+    x = _randn((30_000,), cuda_device)
+    before = dict(stl.LAUNCHES)
+    with pytest.raises(ValueError):
+        call(x)
+    assert stl.LAUNCHES == before
+
+
+def test_layout_cuda_input_never_takes_the_plain_version(cuda_device,
+                                                         monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(stl, "stft_layout_plain", refuse)
+    monkeypatch.setattr(stv, "stft_variant_plain", refuse)
+    x = _randn((30_000,), cuda_device)
+    for layout, fn in LAYOUT_ENTRIES.items():
+        assert fn(x).is_cuda, layout
+    with pytest.raises(TypeError, match="float32"):
+        stl.stft_layout_cuda(x.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        stl.stft_layout_cuda(x[::2])

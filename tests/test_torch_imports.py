@@ -41,7 +41,9 @@ for sub in ("cli", "cli.run_dc", "cli.drivers", "cli.tools",
             "cluster.metrics", "utils.config", "utils.history",
             "workflow.fit", "workflow.predict", "experiments.stft_precision",
             "experiments.stft_isolate", "experiments.stft_decompose",
-            "ops.cuda_stft_variants"):
+            "experiments.stft_rawread", "experiments.stft_outslice",
+            "experiments.stft_fusedbasis", "experiments.stft_loose_precision",
+            "ops.cuda_stft_variants", "ops.cuda_stft_layout"):
     assert pkg.__name__ + "." + sub in names, sub
 import chip_smoke  # noqa: F401
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)

@@ -41,8 +41,12 @@ from jax.experimental.pallas import tpu as pltpu
 from spectrogram_cube_clustering_tpu import signal as jsignal
 from spectrogram_cube_clustering_tpu_torch.experiments import (
     stft_decompose,
+    stft_fusedbasis,
     stft_isolate,
+    stft_loose_precision,
+    stft_outslice,
     stft_precision,
+    stft_rawread,
 )
 from spectrogram_cube_clustering_tpu_torch.ops import cuda_stft
 from spectrogram_cube_clustering_tpu_torch.ops import cuda_stft_variants as v
@@ -377,14 +381,37 @@ def test_k5_stage_matches_script(scripts, shape, fpb):
     (stft_precision, {"accuracy", "throughput_Msps", "device"}),
     (stft_isolate, {"throughput_Msps", "interior_us_per_4M", "device"}),
     (stft_decompose, {"throughput_Msps", "device"}),
+    (stft_rawread, {"ok", "err", "shipped_gsps", "rawread_gsps", "speedup",
+                    "device"}),
+    (stft_outslice, {"shipped", "narrow_out", "device"}),
+    (stft_fusedbasis, {"ok", "fused_err", "fused_512", "shipped",
+                       "fused_1024", "device"}),
+    (stft_loose_precision, {
+        "throughput_highest_gsamples", "throughput_default_gsamples",
+        "speedup", "err_random_max", "err_random_p999", "err_planted_max",
+        "err_planted_p999", "cluster_highest_nmi", "cluster_highest_loss",
+        "cluster_default_nmi", "cluster_default_loss",
+        "cluster_label_agreement_nmi", "device"}),
 ])
 def test_main_prints_the_script_json(module, keys, capsys):
     argv = ["--device", "cpu", "--samples", "3000", "--reps", "1"]
-    if module is stft_precision:
-        argv += ["--accuracy-samples", "5000"]
+    argv += {
+        stft_precision: ["--accuracy-samples", "5000"],
+        stft_outslice: ["--accuracy-samples", "5000"],
+        # fpb 1024 needs (1024 + 8) rows of 100 samples
+        stft_fusedbasis: ["--samples", "110000"],
+        stft_loose_precision: ["--error-samples", "5000", "--segments", "2",
+                               "--epochs", "1"],
+    }.get(module, [])
     assert module.main(argv) == 0
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert set(out) == keys and out["device"] == "cpu"
+    if module is stft_rawread or module is stft_fusedbasis:
+        assert out["ok"] is True
+    if module is stft_loose_precision:
+        assert all(0.0 <= out[k] <= 1.0 for k in keys if k.endswith("_nmi"))
+    if "throughput_Msps" not in out:
+        return
     names = {
         stft_precision: {"shipped_HIGHEST", "folded_HIGHEST", "folded_bf16x3"},
         stft_isolate: {"passthrough", "default", "highest",

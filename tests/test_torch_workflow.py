@@ -212,11 +212,14 @@ def test_configuration_matches_jax(tmp_path, model, mode, hp):
 
 def test_set_device(tmp_path):
     """The ini's `device` key or the argument picks the device; the card
-    by default (the CPU here, where there is none); a card index that
-    does not exist raises."""
+    by default, which raises where there is none (no silent CPU run); a
+    card index that does not exist raises."""
     c = config.load_config(_write_ini(tmp_path, "train", "AEC"))
-    default = "cuda" if torch.cuda.is_available() else "cpu"
-    assert c.set_device().type == default
+    if torch.cuda.is_available():
+        assert c.set_device().type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            c.set_device()
     assert c.set_device("cpu") == torch.device("cpu")
     c = config.load_config(_write_ini(tmp_path, "train", "AEC",
                                       {"device": "cpu"}))
@@ -392,7 +395,8 @@ def test_silhouette_matches_jax_and_sklearn(chunk):
     np.testing.assert_allclose(got, sk(x, labels), **TOL)
     assert got[0] == 0.0
     with pytest.raises(ValueError, match="2 to n_samples-1"):
-        silhouette.silhouette_samples(x, np.zeros(len(x), int), 4)
+        silhouette.silhouette_samples(x, np.zeros(len(x), int), 4,
+                                      device="cpu")
 
 
 @pytest.mark.parametrize("cap", [None, 150])
