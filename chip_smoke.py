@@ -8,7 +8,10 @@ the script exits non-zero:
 
 1. device: refuse to run without CUDA; print the card's name and power
    limit (nvidia-smi) and the TF32 flags after the float32 policy;
-2. build: compile csrc/*.cu with nvcc (ops/_build.py), print the seconds;
+2. build: compile csrc/*.cu with nvcc (ops/_build.py), print the seconds,
+   and count the DMMA (FP64 tensor-core) instructions of each
+   instantiation of the two FP64 tensor-core kernels, stft_f32_kernel and
+   stft_layout_kernel, in `cuobjdump -sass` of the library: none may be 0;
 3. kernel: the CUDA STFT against its plain version on the same CUDA
    tensors at the geometries below, atol 2e-3 on log10;
 4. slice: a DEC(n_clusters=5, input_hw=(4, 101)) with seeded random
@@ -64,7 +67,9 @@ the script exits non-zero:
    launch its kernel. Prints the accuracy table at 200,000 samples
    against the oracle and K1, and each kernel's time, its plain
    version's, its library call's (`torch.stft` in float32, then |.|^2
-   and log10; a shifted add for the passthrough) and its bound;
+   and log10; a shifted add for the passthrough) and its bound; for the
+   HIGHEST (FP64 tensor-core) kernels also the design floor, the direct
+   DFT's FLOP at the FP64 tensor-core peak, and the kernel's share of it;
 4e. layouts: the STFT layout kernels (`csrc/stft_layout.cu`) through
    their entry points at the scripts' default blocks: K6 raw-read
    (`experiments.stft_rawread.rawread`, every frame), K7 narrow-out
@@ -77,9 +82,12 @@ the script exits non-zero:
    max(2e-3, 1.5 x the plain version's), K8's shape its frames_main.
    Each entry point, run at 4,000,000 samples with the counts at 0, must
    launch its own kernel once, and neither K1 nor a variant kernel.
-   Prints each kernel's time, its plain version's, its library call's
-   (`torch.stft` in float32, then |.|^2 and log10), the FP32 variant
-   kernel's (`stft_f32_kernel`) on the same input, and its bound;
+   Prints at how many of the 15 (layout, length) inputs the kernel is
+   closer to float64 than the plain version (not gated), and each
+   kernel's time, its plain version's, its library call's (`torch.stft`
+   in float32, then |.|^2 and log10), the HIGHEST variant kernel's
+   (`stft_f32_kernel`) on the same input, its bound, and its design
+   floor (the direct DFT's FLOP at the FP64 tensor-core peak);
 4f. loose precision: `experiments.stft_loose_precision.main` on the card
    at the script's sizes (K1 `highest` against `precision="default"`:
    throughput at 4,000,000 samples, their gap at 400,000, and AEC ->
@@ -123,6 +131,8 @@ CUBE_WAVE = (16, 3_167_400)
 # H100 SXM data sheet: FP64 tensor-core peak (the SIMT FP64 peak is half)
 # and HBM3 bandwidth, at the 700 W limit
 FP64_PEAK = 67e12
+#: the kernels that multiply on the FP64 tensor cores (phase 2)
+DMMA_KERNELS = ("stft_f32_kernel", "stft_layout_kernel")
 HBM_BYTES_PER_S = 3.35e12
 # ... and the pipes of the variants: FP32 outside the tensor cores, dense
 # TF32 and BF16 tensor cores
@@ -808,6 +818,14 @@ def variant_oracle(x, nperseg, hop, epilogue, rows=None, lanes=None):
     return torch.nn.functional.pad(want, pad, value=-12.0), scale
 
 
+def direct_dft_ms(frames, epilogue, nperseg=200):
+    """The direct DFT's time at the FP64 tensor-core peak: 2 FLOP for each
+    sample of each frame and each of the nfreq cos (and, but for c only,
+    nfreq sin) columns."""
+    cols = (nperseg // 2 + 1) * (1 if epilogue == "c" else 2)
+    return 2 * frames * nperseg * cols / FP64_PEAK * 1e3
+
+
 def variant_values(got, epilogue, scale):
     """A variant's float32 output in the oracle's terms (float64)."""
     if epilogue == "c":
@@ -993,13 +1011,19 @@ def phase_variants(device, gen, card, cuda_stft, spectrogram_windows):
         ops_ms, bytes_ms = flop / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
         bound_ms = max(ops_ms, bytes_ms)
         bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+        floor = ""
+        if fmt == "f32":  # the FP64 tensor-core kernel's own floor
+            floor_ms = direct_dft_ms(b * kw.get("rows", frames), epilogue)
+            floor = (f"; design floor {floor_ms:.4f} ms (direct DFT at "
+                     f"{FP64_PEAK:.3g} FLOP/s), kernel at "
+                     f"{floor_ms / ms:.1%} of it")
         print(f"variant {name} {tuple(x.shape)} on {card}: kernel {ms:.4f} ms "
               f"({x.numel() / ms / 1e6:.3f} G samples/s), plain "
               f"{plain_ms:.4f} ms, library {library_ms:.4f} ms; bound "
               f"{bound_ms:.4f} ms by {bound_by} ({flop:.4e} FLOP at "
               f"{peak:.3g}/s = {ops_ms:.4f} ms; {nbytes} bytes = "
-              f"{bytes_ms:.4f} ms), kernel at {bound_ms / ms:.1%} of it",
-              flush=True)
+              f"{bytes_ms:.4f} ms), kernel at {bound_ms / ms:.1%} of it"
+              f"{floor}", flush=True)
         entries.append({
             "name": name,
             "route": "cuda",
@@ -1046,7 +1070,7 @@ def phase_layouts(device, gen, card, cuda_stft):
         return (t - 200) // 100 + 1
 
     # kernel against plain and the float64 oracle at each length
-    worst = {}
+    worst, closer, inputs = {}, 0, 0
     for name, _ in LAYOUTS:
         worst[name] = 0.0
         for t in LAYOUT_LENGTHS:
@@ -1074,7 +1098,11 @@ def phase_layouts(device, gen, card, cuda_stft):
             check(q <= VARIANT_P999, f"{name} {t} p99.9 {q}")
             check(k_err <= limit, f"{name} {t} vs float64 {k_err}")
             worst[name] = max(worst[name], gap)
+            closer += k_err < p_err
+            inputs += 1
             del x, got, want, ref, diff
+    print(f"layout kernels closer to float64 than their plain versions at "
+          f"{closer} of {inputs} inputs", flush=True)
 
     # the path: each entry point at LAYOUT_MAIN samples with the counts at
     # 0 just before it
@@ -1098,7 +1126,8 @@ def phase_layouts(device, gen, card, cuda_stft):
     del out
 
     # times at the path's input, beside the plain version, the library
-    # call, the FP32 variant kernel (stft_f32_kernel) and the bound
+    # call, the HIGHEST variant kernel (stft_f32_kernel), the bound and the
+    # design floor
     win32 = torch.hann_window(200, periodic=True, device=device)
 
     def library(v):
@@ -1129,14 +1158,17 @@ def phase_layouts(device, gen, card, cuda_stft):
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         bound_ms = max(ops_ms, bytes_ms)
         bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+        floor_ms = direct_dft_ms(frames, "log")
         print(f"layout {name} ({LAYOUT_MAIN},) -> ({frames}, 101) on {card}: "
               f"kernel {ms:.4f} / {ms2:.4f} ms "
               f"({LAYOUT_MAIN / ms / 1e6:.3f} G samples/s), plain "
-              f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, FP32 variant "
-              f"kernel {f32_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} "
-              f"({flop:.4e} FLOP = {ops_ms:.4f} ms; {nbytes} bytes = "
-              f"{bytes_ms:.4f} ms), kernel at {bound_ms / ms:.1%} of it",
-              flush=True)
+              f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, HIGHEST "
+              f"variant kernel {f32_ms:.4f} ms; bound {bound_ms:.4f} ms by "
+              f"{bound_by} ({flop:.4e} FLOP = {ops_ms:.4f} ms; {nbytes} bytes "
+              f"= {bytes_ms:.4f} ms), kernel at {bound_ms / ms:.1%} of it; "
+              f"design floor {floor_ms:.4f} ms (direct DFT at "
+              f"{FP64_PEAK:.3g} FLOP/s), kernel at {floor_ms / ms:.1%} of "
+              f"it", flush=True)
         result.append({
             "name": name,
             "route": "cuda",
@@ -1232,6 +1264,12 @@ def main() -> int:
     for line in _build.build_log().splitlines():
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}", flush=True)
+    counts = _build.dmma_counts(_build.sass())
+    for kernel in DMMA_KERNELS:
+        found = {k: v for k, v in counts.items() if kernel in k}
+        print(f"  sass: {kernel}: DMMA per instantiation "
+              f"{sorted(found.values())}", flush=True)
+        check(bool(found) and all(found.values()), f"{kernel} DMMA {found}")
 
     # 3. kernel against plain
     gen = torch.Generator(device=device).manual_seed(args.seed)

@@ -104,14 +104,18 @@ def cluster_metrics(
     labels: np.ndarray,
     x: np.ndarray,
     z: np.ndarray,
+    save: bool = True,
     rf: int = 3,
     silh_max_samples: Optional[int] = None,
     seed: int = 2009,
+    *,
     device=None,
 ) -> Dict[str, object]:
     """Per-class clustering metrics of numpy labels, windows x and latents
-    z; silhouettes on `device`; the files are written under `path` unless
-    it is None. Returns N, X_ip, X_MSE, X_MSE_avg, X_MAE,
+    z; silhouettes on `device`. The positional parameters are the JAX
+    package's; the files are written under `path` when `save` is true and
+    `path` is not None, else nothing is written. Returns N, X_ip, X_MSE,
+    X_MSE_avg, X_MAE,
     X_MAE_avg, silh_scores_Z, silh_scores_X, class_silh_Z, class_silh_X
     (numpy) and "df": the table as a dict of columns, "index" holding
     each row's class position and finally "mean".
@@ -187,7 +191,7 @@ def cluster_metrics(
     table["silh_score_Z"].append(_nanmean_or_nan(silh_z))
     table["silh_score_X"].append(_nanmean_or_nan(silh_x))
 
-    if path is not None:
+    if save and path is not None:
         np.save(os.path.join(path, "X_ip"), x_ip_avg)
         np.save(os.path.join(path, "X_MSE"), x_mse)
         np.save(os.path.join(path, "X_MSE_avg"), x_mse_avg)

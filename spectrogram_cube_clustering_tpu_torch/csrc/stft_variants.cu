@@ -28,39 +28,53 @@
 //   stft_mma_kernel<kBF16x3>: each operand split into hi = bf16(v) and
 //       lo = bf16(v - hi) (round to nearest even), hi*hi + hi*lo + lo*hi in
 //       three bf16 tensor-core passes, float32 sums;
-//   stft_f32_kernel: float32 products and float32 sums on the SIMT pipes.
+//   stft_f32_kernel (HIGHEST): the float32 operands widened to float64,
+//       products and sums on the FP64 tensor cores, c and s rounded to
+//       float32 once.
 // TF32 and bf16 products are exact in float32, so the plain versions
 // (ops/cuda_stft_variants.py, float32 matmuls of the same rounded or split
 // operands) differ from these kernels only in the order of the sums. The
 // tensor cores' float32 accumulation inside one MMA is not round-to-nearest,
 // so each MMA k-step starts from a zero fragment and is added to the running
-// sums in registers with round-to-nearest FADDs. The SIMT kernel's sums are
-// compensated (Kahan): at the near-zero DC and Nyquist bins, where the DFT
-// cancels, a bare FFMA chain misses the float64 value by as much as the plain
-// version does, in another direction; compensated, the kernel is held to the
-// float64 oracle by the float32 rounding of its bases alone.
+// sums in registers with round-to-nearest FADDs. At HIGHEST, where the DFT
+// cancels (the near-zero DC and Nyquist bins), a float32 sum errs in
+// proportion to sum |x * b|, not to the result, so the plain version's
+// float32 sums miss the float64 value there; a float32 product is exact in
+// float64 and a float64 sum of nperseg of them errs by ~1e-14 of sum |x * b|,
+// so stft_f32_kernel is held to the float64 oracle by the float32 rounding of
+// its bases and of c and s alone, with no compensated (Kahan) sums.
 //
 // Design. The DFT keeps nfreq ~ nperseg/2 bins, so it is a skinny GEMM of the
 // framed waveform (frames, nperseg) against (nperseg, 2 * nfreq) bases; the
 // waveform is read directly, frame f at sample f*hop (the TPU scripts' staged
 // shifted planes were a TPU layout and are not materialised). A frame starts
-// 400 bytes apart at hop 100, which is no 32-byte boundary, so the tensor-core
+// 400 bytes apart at hop 100, which is no 32-byte boundary, so the TF32/bf16
 // kernel cannot load its A fragments from an overlapping view of x: each
 // block stages its (64 frames x 32 samples) slice, already rounded or split,
 // and its (32 samples x 64 bins x cos|sin) basis slice into shared memory,
 // whose pitches keep every fragment 32-byte aligned. Four warps own 16 frames
-// each and all 64 bins of the block (4 cos + 4 sin fragments of 16 x 16).
-// The SIMT kernel tiles like csrc/stft.cu (128 frames x 16 bins, 40-sample
-// chunks) in float. Both stage the result tile in shared memory and store it
-// coalesced along bins; ragged frame and bin edges are masked.
+// each and all 64 bins of the block (4 cos + 4 sin fragments of 16 x 16); the
+// result tile goes through shared memory to stores coalesced along bins.
+// stft_f32_kernel is the flat loop of csrc/stft_dmma.cuh: a persistent grid
+// whose blocks keep their bins' float64 bases in shared memory (at 200 / 100,
+// c only: all 101 bins; log and power: 48 or 56 bins a block, cos and sin)
+// and walk tiles of 64 frames; a staging warp copies each tile's samples
+// [f0*hop, (f0 + 63)*hop + nperseg) once with cp.async, double-buffered,
+// while eight warps multiply them on the FP64 tensor cores (mma.sync
+// m16n8k8 .f64); ragged frame and bin edges are masked, and the result tile
+// is stored a row segment at a time.
 //
 // Bound. At nperseg 200 / hop 100 the function needs ~4.4 FFT FLOP per input
 // sample against ~8 bytes of device memory (4 read, ~4 written, or ~5 for
-// K4's 128 padded lanes), far below every pipe's ridge (FP32 SIMT 67 TFLOP/s,
-// TF32 495, BF16 989, against 3.35 TB/s): every variant is bound by bytes,
-// ~0.040 ms at a (16, 2^20) batch. These kernels do the direct DFT (~400
-// FLOP a sample, x4 for the compensated SIMT sums, x3 passes for bf16x3), so
-// they sit far above that bound; they are the first, simple versions.
+// K4's 128 padded lanes), far below every pipe's ridge (FP64 tensor cores and
+// FP32 SIMT 67 TFLOP/s, TF32 495, BF16 989, against 3.35 TB/s): every variant
+// is bound by bytes, 0.0403 ms at a (16, 2^20) batch and 0.0109 ms for K4's
+// padded output of 4,000,000 samples. These kernels do the direct DFT (~400
+// FLOP a sample, x3 passes for bf16x3), so they sit far above that bound. The
+// floor of stft_f32_kernel's own design is the direct DFT's FLOP,
+// 2 * frames * nperseg * 2 * nfreq (nfreq for c only), at the FP64
+// tensor-core peak: 0.2023 ms at (16, 2^20) for log and power, 0.1011 for c
+// only, 0.0485 for K4's 40,192 padded rows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -68,21 +82,18 @@
 
 #include <cstdint>
 
+#include "stft_dmma.cuh"
+
 namespace {
 
 using namespace nvcuda;
 
-enum Epilogue : int { kLog = 0, kPower = 1, kCOnly = 2 };
-enum Format : int { kTF32 = 0, kBF16x3 = 1 };
+using scc_dmma::finish;  // the epilogues, op by op in float32
+using scc_dmma::kCOnly;
+using scc_dmma::kLog;
+using scc_dmma::kPower;
 
-// c^2 + s^2 + eps rounded op by op, as the plain version's torch ops are
-// (no contraction into an FMA).
-template <int kEpi>
-__device__ __forceinline__ float finish(float c, float s, float eps) {
-  if (kEpi == kCOnly) return c;
-  const float p = __fadd_rn(__fadd_rn(__fmul_rn(c, c), __fmul_rn(s, s)), eps);
-  return kEpi == kLog ? log10f(p) : p;
-}
+enum Format : int { kTF32 = 0, kBF16x3 = 1 };
 
 // ---------------------------------------------------------------- tensor cores
 
@@ -246,132 +257,15 @@ __global__ void __launch_bounds__(kMmaThreads)
   }
 }
 
-// ------------------------------------------------------------------ FP32 SIMT
+// ------------------------------------------------- FP32 operands, FP64 MMAs
 
-constexpr int kLanes = 32;
-constexpr int kWarps = 4;
-constexpr int kThreads = kLanes * kWarps;
-constexpr int kFramesPerLane = 4;
-constexpr int kBinsPerWarp = 4;
-constexpr int kTileFrames = kLanes * kFramesPerLane;  // 128
-constexpr int kTileBins = kWarps * kBinsPerWarp;      // 16
-constexpr int kChunk = 40;
-constexpr int kXPitch = kChunk + 1;  // odd: lane-strided reads never collide
-constexpr int kOutPitch = kTileBins + 1;
-constexpr int kSmemXFloats = kTileFrames * kXPitch;
-constexpr int kSmemBFloats = kChunk * kTileBins * 2;
-
-static_assert(kSmemXFloats % 2 == 0, "basis tile must be 8-byte aligned");
-static_assert(kTileFrames * kOutPitch <= kSmemXFloats,
-              "output tile reuses the waveform tile");
-
-// one compensated (Kahan) step: sum += xv * bv
-__device__ __forceinline__ void kahan(float& sum, float& comp, float xv,
-                                      float bv) {
-  const float y = fmaf(xv, bv, -comp);
-  const float s = __fadd_rn(sum, y);
-  comp = __fsub_rn(__fsub_rn(s, sum), y);
-  sum = s;
-}
-
+// HIGHEST (K2, K4, K5): the direct DFT as a float64 GEMM on the FP64 tensor
+// cores over the widened float32 operands, the flat loop of
+// csrc/stft_dmma.cuh (frame f at sample f*hop, K = nperseg in steps of 8).
 template <int kEpi>
-__global__ void __launch_bounds__(kThreads)
-    stft_f32_kernel(const float* __restrict__ x, const float* __restrict__ cosb,
-                    const float* __restrict__ sinb, float* __restrict__ out,
-                    int64_t t, int64_t n_rows, int n_ftiles, int nperseg,
-                    int hop, int nfreq, int n_cols, float eps) {
-  constexpr bool kSin = kEpi != kCOnly;
-  __shared__ __align__(16) float smem[kSmemXFloats + kSmemBFloats];
-  float* xs = smem;                 // [kTileFrames][kXPitch]
-  float* bs = smem + kSmemXFloats;  // [kChunk][kTileBins][cos, sin]
-
-  const int64_t b = blockIdx.x / n_ftiles;
-  const int64_t f0 = int64_t(blockIdx.x % n_ftiles) * kTileFrames;
-  const int k0 = blockIdx.y * kTileBins;
-  const int warp = threadIdx.x / kLanes;
-  const int lane = threadIdx.x % kLanes;
-  const float* xb = x + b * t;
-
-  float c[kFramesPerLane][kBinsPerWarp], cc[kFramesPerLane][kBinsPerWarp];
-  float s[kFramesPerLane][kBinsPerWarp], sc[kFramesPerLane][kBinsPerWarp];
-#pragma unroll
-  for (int i = 0; i < kFramesPerLane; ++i) {
-#pragma unroll
-    for (int q = 0; q < kBinsPerWarp; ++q) {
-      c[i][q] = cc[i][q] = s[i][q] = sc[i][q] = 0.0f;
-    }
-  }
-
-  for (int n0 = 0; k0 < nfreq && n0 < nperseg; n0 += kChunk) {
-    __syncthreads();
-    for (int e = threadIdx.x; e < kTileFrames * kChunk; e += kThreads) {
-      const int fr = e / kChunk;
-      const int j = e - fr * kChunk;
-      const int64_t f = f0 + fr;
-      const int n = n0 + j;
-      float v = 0.0f;
-      if (f < n_rows && n < nperseg) {
-        const int64_t i = f * hop + n;
-        if (i < t) v = __ldg(xb + i);
-      }
-      xs[fr * kXPitch + j] = v;
-    }
-    for (int e = threadIdx.x; e < kChunk * kTileBins; e += kThreads) {
-      const int j = e / kTileBins;
-      const int q = e - j * kTileBins;
-      const int n = n0 + j;
-      const int k = k0 + q;
-      float cv = 0.0f, sv = 0.0f;
-      if (n < nperseg && k < nfreq) {
-        cv = __ldg(cosb + int64_t(n) * nfreq + k);
-        sv = __ldg(sinb + int64_t(n) * nfreq + k);
-      }
-      bs[2 * e] = cv;
-      bs[2 * e + 1] = sv;
-    }
-    __syncthreads();
-
-    const int jn = min(kChunk, nperseg - n0);
-    const float2* brow =
-        reinterpret_cast<const float2*>(bs) + warp * kBinsPerWarp;
-    for (int j = 0; j < jn; ++j) {
-      float xv[kFramesPerLane];
-#pragma unroll
-      for (int i = 0; i < kFramesPerLane; ++i)
-        xv[i] = xs[(lane + kLanes * i) * kXPitch + j];
-#pragma unroll
-      for (int q = 0; q < kBinsPerWarp; ++q) {
-        const float2 cs = brow[j * kTileBins + q];
-#pragma unroll
-        for (int i = 0; i < kFramesPerLane; ++i) {
-          kahan(c[i][q], cc[i][q], xv[i], cs.x);
-          if (kSin) kahan(s[i][q], sc[i][q], xv[i], cs.y);
-        }
-      }
-    }
-  }
-
-  __syncthreads();  // every thread is done with the waveform tile
-  float* os = smem;  // [kTileFrames][kOutPitch]
-#pragma unroll
-  for (int i = 0; i < kFramesPerLane; ++i) {
-#pragma unroll
-    for (int q = 0; q < kBinsPerWarp; ++q) {
-      const float cv = __fsub_rn(c[i][q], cc[i][q]);
-      const float sv = __fsub_rn(s[i][q], sc[i][q]);
-      os[(lane + kLanes * i) * kOutPitch + warp * kBinsPerWarp + q] =
-          finish<kEpi>(cv, sv, eps);
-    }
-  }
-  __syncthreads();
-  float* ob = out + b * n_rows * n_cols;
-  for (int e = threadIdx.x; e < kTileFrames * kTileBins; e += kThreads) {
-    const int fr = e / kTileBins;
-    const int q = e - fr * kTileBins;
-    const int64_t f = f0 + fr;
-    const int k = k0 + q;
-    if (f < n_rows && k < n_cols) ob[f * n_cols + k] = os[fr * kOutPitch + q];
-  }
+__global__ void __launch_bounds__(scc_dmma::kThreads, 1)
+    stft_f32_kernel(scc_dmma::Args a) {
+  scc_dmma::body<false, 0, kEpi>(a);
 }
 
 // ---------------------------------------------------------------- passthrough
@@ -415,7 +309,7 @@ int launch_stft(Kernel kernel, int tile_frames, int tile_bins,
   if (batch < 1 || n_rows < 1 || n_cols < 1 || nperseg < 1 || hop < 1 ||
       nfreq < 1 || grid_x > INT32_MAX || grid_y > 65535)
     return int(cudaErrorInvalidValue);
-  kernel<<<dim3(unsigned(grid_x), unsigned(grid_y)), kThreads, 0,
+  kernel<<<dim3(unsigned(grid_x), unsigned(grid_y)), kMmaThreads, 0,
            static_cast<cudaStream_t>(stream)>>>(x, cosb, sinb, out, t, n_rows,
                                                 int(n_ftiles), nperseg, hop,
                                                 nfreq, n_cols, eps);
@@ -423,8 +317,6 @@ int launch_stft(Kernel kernel, int tile_frames, int tile_bins,
 }
 
 }  // namespace
-
-static_assert(kThreads == kMmaThreads, "one block size for both routes");
 
 // The launchers return the CUDA error code (0 on success). All pointers are
 // device pointers; cosb and sinb are the (nperseg, nfreq) float32 windowed
@@ -457,16 +349,33 @@ extern "C" int scc_stftv_f32_launch(const float* x, const float* cosb,
                                     int nperseg, int hop, int nfreq,
                                     int n_cols, int epi, float eps,
                                     void* stream) {
-#define SCC_F32(E)                                                          \
-  if (epi == E)                                                             \
-    return launch_stft(stft_f32_kernel<E>, kTileFrames, kTileBins, x, cosb, \
-                       sinb, out, batch, t, n_rows, nperseg, hop, nfreq,    \
-                       n_cols, eps, stream);
-  SCC_F32(kLog)
-  SCC_F32(kPower)
-  SCC_F32(kCOnly)
-#undef SCC_F32
-  return int(cudaErrorInvalidValue);
+  if (batch < 1 || batch > INT32_MAX || n_rows < 1 || n_cols < nfreq ||
+      nperseg < 1 || hop < 1 || nfreq < 1 || t < 1)
+    return int(cudaErrorInvalidValue);
+  scc_dmma::Args a{};
+  a.x = x;
+  a.cosb = cosb;
+  a.sinb = sinb;
+  a.out = out;
+  a.t = t;
+  a.n_rows = n_rows;
+  a.batch = int(batch);
+  a.nperseg = nperseg;
+  a.hop = hop;
+  a.nfreq = nfreq;
+  a.n_cols = n_cols;
+  a.eps = eps;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (epi) {
+    case kLog:
+      return scc_dmma::launch<2>(stft_f32_kernel<kLog>, a, false, s);
+    case kPower:
+      return scc_dmma::launch<2>(stft_f32_kernel<kPower>, a, false, s);
+    case kCOnly:
+      return scc_dmma::launch<1>(stft_f32_kernel<kCOnly>, a, false, s);
+    default:
+      return int(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" int scc_stftv_passthrough_launch(const float* x, float* out,

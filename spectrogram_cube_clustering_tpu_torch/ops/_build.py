@@ -1,12 +1,15 @@
 """Build the package's CUDA kernels at first use and load them with ctypes.
 
-Every `csrc/*.cu` file is compiled by `nvcc` into ONE shared library with
-a plain C interface (no PyTorch headers, so a build takes seconds), named
-by a hash of the sources and flags, in the package's `build/` directory
-(gitignored). A library whose hash matches is reused; a changed source
-builds anew. Importing this module runs nothing: the compiler runs on the
-first `load_library()` call, and a failed build raises with the
-compiler's output.
+Every `csrc/*.cu` file is compiled by `nvcc`, one process a file, all
+started together, and the objects linked into ONE shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds), named by
+a hash of the sources, the headers (`csrc/*.cuh`) and the flags, in the
+package's `build/` directory (gitignored). A library whose hash matches is
+reused; a changed source builds anew. Importing this module runs nothing:
+the compiler runs on the first `load_library()` call, and a failed build
+raises with the compiler's output. `dmma_counts` reads the built library's
+SASS (`cuobjdump -sass`, beside `nvcc`) for the FP64 tensor-core
+instructions of each kernel.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -23,9 +27,10 @@ PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
 
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    *ARCH_FLAGS,
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     # per-kernel registers, shared memory and spills go to the build log
     "-Xptxas", "-v",
 )
@@ -41,7 +46,7 @@ def sources() -> list:
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + sorted(CSRC_DIR.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libscc_kernels_{h.hexdigest()[:16]}.so"
@@ -60,21 +65,44 @@ def _nvcc() -> str:
     )
 
 
+def _run_all(cmds: list) -> tuple:
+    """Run the commands at once; (the first failing return code or 0,
+    each command and its output)."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    log, rc = "", 0
+    for cmd, proc in zip(cmds, procs):
+        text = proc.communicate()[0]
+        log += f"$ {' '.join(cmd)}\n{text}"
+        rc = rc or proc.returncode
+    return rc, log
+
+
 def build() -> Path:
-    """Compile the library unless a build of the same sources exists.
-    The compiler's output is kept beside it as `<name>.log`."""
+    """Compile the library unless a build of the same sources exists:
+    every source at once, then one link. The compiler's output is kept
+    beside it as `<name>.log`."""
     out = library_path()
     if out.exists():
         return out
+    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+    stem = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{stem}.{src.stem}.o" for src in sources()]
+    rc, log = _run_all([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                        for src, obj in zip(sources(), objs)])
+    tmp = out.with_name(f"{stem}.tmp.so")
+    if rc == 0:
+        rc, link = _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                              *map(str, objs)]])
+        log += link
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     out.with_suffix(".log").write_text(log)
-    if proc.returncode != 0:
+    if rc != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        raise RuntimeError(f"nvcc failed ({rc}):\n{log}")
     os.replace(tmp, out)  # atomic: a concurrent process sees all or nothing
     return out
 
@@ -121,3 +149,29 @@ def load_library() -> ctypes.CDLL:
             lib.scc_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+def sass() -> str:
+    """`cuobjdump -sass` of the built library (built first if needed)."""
+    path = build()
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    proc = subprocess.run([str(tool), "-sass", str(path)],
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed ({proc.returncode}):\n"
+                           f"{proc.stdout}{proc.stderr}")
+    return proc.stdout
+
+
+def dmma_counts(text: str) -> dict:
+    """Per kernel of a `cuobjdump -sass` listing (its mangled name), the
+    number of DMMA instructions (FP64 tensor-core MMAs)."""
+    counts, name = {}, None
+    for line in text.splitlines():
+        head = re.match(r"\s*Function\s*:\s*(\S+)", line)
+        if head:
+            name = head.group(1)
+            counts[name] = 0
+        elif name is not None and re.search(r"\bDMMA\b", line):
+            counts[name] += 1
+    return counts

@@ -8,10 +8,10 @@ hop 100 only) and K8 `benchmarks/stft_fusedbasis_tpu.py`
 `build_fused.kernel` (``fusedbasis``). Each reads a 1-D float32 waveform as
 hop-sample rows, staged once per tile, and writes the narrow
 (n_out, nperseg // 2 + 1) float32 log-power of its first `n_out` frames at
-HIGHEST (float32 products and sums): the DFT of frame f is the sum, in
-order j = 0 .. ratio - 1, of its partials over rows f + j against the
-basis slices `[j * hop, (j + 1) * hop)`. `csrc/stft_layout.cu` gives the
-design and the bound.
+HIGHEST: the DFT of frame f is the sum of its partials over rows f + j
+against the basis slices `[j * hop, (j + 1) * hop)`, j = 0 .. ratio - 1,
+the float32 operands multiplied and summed in float64 on the FP64 tensor
+cores. `csrc/stft_layout.cu` gives the design and the bound.
 
 The plain version is `ops.cuda_stft_variants.stft_variant_plain` at
 ``f32`` / ``log`` with ``chunks = ratio`` (the same partials in the same
@@ -36,7 +36,7 @@ from spectrogram_cube_clustering_tpu_torch.ops.cuda_stft_variants import (
 
 LAYOUTS = ("rawread", "outslice", "fusedbasis")  # the kernel's layout codes
 MAX_HOP = 128    # the TPU scripts' rows fit one 128-lane basis slice
-MAX_RATIO = 64   # basis slices the kernel stages (csrc/stft_layout.cu)
+MAX_RATIO = 64   # basis slices the kernel takes (csrc/stft_layout.cu)
 HALO = 8         # K6's halo rows (benchmarks/stft_rawread_tpu.py:28)
 SUBLANE = 8      # the TPU's row tiling, which fpb and K8's halo follow
 

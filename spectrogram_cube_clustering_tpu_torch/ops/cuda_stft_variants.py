@@ -10,7 +10,9 @@ is a windowed DFT of the waveform read directly, c = frames @ cos and
 s = frames @ sin over the float32 bases `float32(hann * cos)` (the JAX
 kernels' operands), in one operand format:
 
-- ``f32``: float32 products and sums (JAX's HIGHEST; SIMT pipes);
+- ``f32``: JAX's HIGHEST: the float32 operands' products and sums in
+  float64 on the FP64 tensor cores, c and s rounded to float32 once (the
+  plain version: float32 products and sums);
 - ``tf32``: both operands rounded to TF32 (`round_tf32`), one tensor-core
   pass with float32 sums (JAX's DEFAULT of a float32 dot on this card);
 - ``bf16x3``: both operands split into bf16 hi + lo (`split_bf16`),
@@ -241,8 +243,8 @@ def stft_variant(x: torch.Tensor, nperseg: int = 200, hop: int = 100,
                  chunks: int = 1, **kw) -> torch.Tensor:
     """The kernel for a CUDA tensor, the plain version for a CPU tensor
     (keywords as `stft_variant_plain`; `chunks` orders the plain
-    version's sums only: the kernels' sums are compensated or taken per
-    MMA step, see `csrc/stft_variants.cu`)."""
+    version's sums only: the kernels sum in float64 or per MMA step, see
+    `csrc/stft_variants.cu`)."""
     if x.device.type == "cpu":
         return stft_variant_plain(x, nperseg, hop, chunks=chunks, **kw)
     if x.device.type != "cuda":

@@ -3,8 +3,9 @@
 This module is a copy of the JAX package's `serve_http.py` with only its
 entry point changed: the HTTP layer is numpy-only, but any import from
 `spectrogram_cube_clustering_tpu` loads jax through that package's
-`__init__`. The copy goes once ROADMAP.md Queue 1 item 0 (lazy imports in
-the JAX package) lets this package import the original without jax.
+`__init__`, and the JAX package is not edited to import lazily. So the
+copy stays (ROADMAP.md Queue 1 item 0), pinned to the original by
+`tests/test_torch_serve.py`.
 
 - `MicroBatcher`: coalesces concurrent requests into single device passes;
   requests wait at most `max_wait_ms` for co-travelers, results are split

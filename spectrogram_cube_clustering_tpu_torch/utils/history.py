@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import csv
 import os
-from typing import Dict, Optional, Sequence
+from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 
@@ -38,16 +38,25 @@ def save_history(history: Dict[str, Sequence], path: str) -> None:
 
 
 def save_labels(
-    labels: np.ndarray, savepath: str, serial: Optional[str] = None
+    label_rows, savepath: str, serial: Optional[str] = None
 ) -> str:
-    """Write Labels[serial].csv, `idx,label` per row (reference
-    utils.py:1182-1209), overwriting any earlier file."""
+    """Write Labels[serial].csv (reference utils.py:1182-1209), overwriting
+    any earlier file. `label_rows` is a list of dict rows (the reference's
+    shape: a header of their keys, then one line per row) or an array of
+    labels (`idx,label` per row)."""
     fname = os.path.join(
         savepath, f"Labels{serial}.csv" if serial else "Labels.csv"
     )
-    labels = np.asarray(labels)
-    if len(labels) == 0:
+    if len(label_rows) == 0:
         return fname
+    if isinstance(label_rows, (list, tuple)) and isinstance(label_rows[0],
+                                                            Mapping):
+        with open(fname, "w", newline="") as f:
+            w = csv.DictWriter(f, label_rows[0].keys())
+            w.writeheader()
+            w.writerows(label_rows)
+        return fname
+    labels = np.asarray(label_rows)
     with open(fname, "w", newline="") as f:
         f.write("idx,label\n")
         for start in range(0, len(labels), 1 << 20):

@@ -328,9 +328,9 @@ def _frame_scale(x, rows):
 @pytest.mark.parametrize("epilogue", stv.EPILOGUES)
 @pytest.mark.parametrize("fmt", stv.FORMATS)
 def test_variant_kernel_matches_plain(cuda_device, fmt, epilogue, layout):
-    """Same rounded operands, float32 sums in another order: p99.9 of the
-    log10 gap within 1e-4 (log, and power through log10); c within 1e-5
-    of its frame's sum |x * w|."""
+    """Same rounded operands, summed in another order (TF32, bf16x3) or
+    in float64 (f32): p99.9 of the log10 gap within 1e-4 (log, and power
+    through log10); c within 1e-5 of its frame's sum |x * w|."""
     x = _randn((2, 30_099), cuda_device)
     kw = dict(rows=512, lanes=128) if layout == "padded" else {}
     key = stv.variant_key(fmt, epilogue, layout == "padded")
@@ -349,6 +349,91 @@ def test_variant_kernel_matches_plain(cuda_device, fmt, epilogue, layout):
             got, want = torch.log10(got), torch.log10(want)
         gap = (got - want).abs().flatten().double()
         assert float(torch.quantile(gap, 0.999)) <= 1e-4
+
+
+def _f64_log_power(x, nperseg, hop, rows):
+    """log10(c^2 + s^2 + 1e-12) in float64 over `rows` frames of the
+    zero-padded (B, T) x: the oracle of the HIGHEST kernels."""
+    need = (rows - 1) * hop + nperseg
+    xp = torch.nn.functional.pad(x.double(), (0, max(0, need - x.shape[-1])))
+    cos_b, sin_b = (torch.from_numpy(v).to(x.device)
+                    for v in stft.windowed_dft_bases(nperseg))
+    frames = stft.frame(xp[:, :need], nperseg, hop)
+    c, s = frames @ cos_b, frames @ sin_b
+    return torch.log10(c * c + s * s + 1e-12)
+
+
+#: (nperseg, hop, shape, padded rows): frame counts that are no multiple of
+#: the kernel's 64-frame tile, a last tile reading past T, bins split among
+#: groups of blocks (256 / 64: 17 bin tiles), hop > 8 not a multiple of 8,
+#: a hop larger than a shared-memory tile of hop rows holds, K in chunks
+F32_EDGES = [
+    (200, 100, (2, 30_099), None),
+    (200, 100, (1, 6_499), None),
+    (200, 100, (2, 30_099), 512),
+    (256, 64, (2, 20_000), None),
+    (120, 40, (1, 7_919), None),
+    (2048, 512, (1, 40_000), None),
+]
+
+
+@pytest.mark.parametrize("epilogue", stv.EPILOGUES)
+@pytest.mark.parametrize("nperseg,hop,shape,rows", F32_EDGES)
+def test_f32_variant_kernel_edges(cuda_device, nperseg, hop, shape, rows,
+                                  epilogue):
+    """The FP64 tensor-core kernel at its edges: p99.9 of the gap to the
+    plain version within 1e-4 (c: 1e-5 of its frame's sum |x * w|), log
+    within max(2e-3, 1.5 x the plain version's error) of float64, and
+    K4's padded lanes exactly the plain version's zero power."""
+    x = _randn(shape, cuda_device, seed=nperseg + hop)
+    kw = dict(fmt="f32", epilogue=epilogue)
+    if rows:
+        kw.update(rows=rows, lanes=128)
+    got = stv.stft_variant_cuda(x, nperseg, hop, **kw)
+    torch.cuda.synchronize()
+    want = stv.stft_variant_plain(x, nperseg, hop, **kw)
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    nfreq = nperseg // 2 + 1
+    if rows:
+        pad = {"log": torch.log10(torch.tensor(1e-12, device=cuda_device)),
+               "power": torch.tensor(1e-12, device=cuda_device),
+               "c": torch.tensor(0.0, device=cuda_device)}[epilogue]
+        assert torch.equal(got[..., nfreq:], want[..., nfreq:])
+        assert bool((got[..., nfreq:] == pad).all())
+    if epilogue == "c":
+        win = torch.from_numpy(stft.np_hann(nperseg)).to(cuda_device)
+        need = (got.shape[1] - 1) * hop + nperseg
+        xp = torch.nn.functional.pad(x.double(),
+                                     (0, max(0, need - shape[-1])))
+        scale = (stft.frame(xp[:, :need], nperseg, hop).abs() * win).sum(
+            -1, True).clamp_min(1e-30)
+        gap = (got - want)[..., :nfreq].abs().double() / scale
+        assert float(gap.max()) <= 1e-5
+        return
+    g, w = (v[..., :nfreq].double() for v in (got, want))
+    if epilogue == "power":
+        g, w = torch.log10(g), torch.log10(w)
+    gap = (g - w).abs().flatten()
+    assert float(gap.kthvalue(max(1, int(0.999 * gap.numel()))).values) \
+        <= 1e-4
+    ref = _f64_log_power(x, nperseg, hop, got.shape[1])
+    k_err, p_err = float((g - ref).abs().max()), float((w - ref).abs().max())
+    assert k_err <= max(2e-3, 1.5 * p_err)
+
+
+def test_sass_has_dmma_in_both_redesigned_kernels(cuda_device):
+    """Every instantiation of stft_f32_kernel (3 epilogues) and of
+    stft_layout_kernel (3 layouts) multiplies on the FP64 tensor cores: an
+    old FP32 SIMT body (Kahan, Dot2) would hold no DMMA."""
+    from spectrogram_cube_clustering_tpu_torch.ops import _build
+
+    counts = _build.dmma_counts(_build.sass())
+    for kernel, n in (("stft_f32_kernel", 3), ("stft_layout_kernel", 3)):
+        found = {k: v for k, v in counts.items() if kernel in k}
+        assert len(found) == n, (kernel, found)
+        assert all(v > 0 for v in found.values()), found
+    assert not any(v for k, v in counts.items()
+                   if "stft_mma_kernel" in k or "passthrough" in k)
 
 
 @pytest.mark.parametrize("fpb", [256, 1024])
@@ -421,8 +506,8 @@ LAYOUT_ENTRIES = {
 @pytest.mark.parametrize("n", [30_099, 205_003])
 @pytest.mark.parametrize("layout", stl.LAYOUTS)
 def test_layout_kernel_matches_plain(cuda_device, layout, n):
-    """The same float32 operands and order of partials, float32 sums in
-    another order inside each: p99.9 of the log10 gap within 1e-4, and
+    """The same float32 operands, the kernel's sums in float64 and the
+    plain version's in float32: p99.9 of the log10 gap within 1e-4, and
     against float64 within max(2e-3, 1.5 x the plain version's error)."""
     x = _randn((n,), cuda_device)
     before = stl.LAUNCHES.get(layout, 0)
@@ -434,6 +519,43 @@ def test_layout_kernel_matches_plain(cuda_device, layout, n):
     gap = (got - want).abs().flatten().double()
     assert float(torch.quantile(gap, 0.999)) <= 1e-4
     ref = stft_precision.f64_oracle(x)[:got.shape[0]]
+    k_err = float((got.double() - ref).abs().max())
+    p_err = float((want.double() - ref).abs().max())
+    assert k_err <= max(2e-3, 1.5 * p_err)
+
+
+#: (layout, nperseg, hop, n, n_out): frames no multiple of the 64-frame
+#: tile with the last tile's rows past T, bins split among groups of
+#: blocks (512 / 128, ratio 4: 33 bin tiles), ratio 8 for K8, and K in
+#: chunks (ratio 64, hop 128: one bin tile's float64 bases over all 64
+#: slices exceed shared memory)
+LAYOUT_EDGES = [
+    ("rawread", 200, 100, 6_499, None),
+    ("outslice", 200, 100, 6_499, None),
+    ("fusedbasis", 200, 100, 30_099, 256),
+    ("rawread", 512, 128, 60_000, None),
+    ("fusedbasis", 512, 128, 60_000, 400),
+    ("fusedbasis", 1024, 128, 60_000, 300),
+    ("rawread", 8192, 128, 30_000, None),
+]
+
+
+@pytest.mark.parametrize("layout,nperseg,hop,n,n_out", LAYOUT_EDGES)
+def test_layout_kernel_edges(cuda_device, layout, nperseg, hop, n, n_out):
+    """The layout kernels at their edges, held as in
+    test_layout_kernel_matches_plain."""
+    x = _randn((n,), cuda_device, seed=nperseg + n)
+    got = stl.stft_layout_cuda(x, nperseg, hop, n_out=n_out, layout=layout)
+    torch.cuda.synchronize()
+    want = stl.stft_layout_plain(x, nperseg, hop, n_out=got.shape[0],
+                                 layout=layout)
+    frames = (n - nperseg) // hop + 1
+    assert got.shape == want.shape == (n_out or frames, nperseg // 2 + 1)
+    assert bool(torch.isfinite(got).all())
+    gap = (got - want).abs().flatten().double()
+    assert float(gap.kthvalue(max(1, int(0.999 * gap.numel()))).values) \
+        <= 1e-4
+    ref = _f64_log_power(x[None], nperseg, hop, got.shape[0])[0]
     k_err = float((got.double() - ref).abs().max())
     p_err = float((want.double() - ref).abs().max())
     assert k_err <= max(2e-3, 1.5 * p_err)

@@ -167,6 +167,39 @@ def test_build_is_keyed_by_sources(tmp_path, monkeypatch):
     assert _build.library_path() != first
 
 
+def test_build_is_keyed_by_headers(tmp_path, monkeypatch):
+    """A change to a shared header (csrc/*.cuh) builds anew."""
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    (tmp_path / "a.cu").write_text('#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// one\n")
+    first = _build.library_path()
+    (tmp_path / "b.cuh").write_text("// two\n")
+    assert _build.library_path() != first
+
+
+def test_dmma_counts_reads_a_sass_listing():
+    """DMMA instructions are counted under the function they belong to,
+    and a function without any counts 0."""
+    listing = textwrap.dedent("""
+        Fatbin elf code:
+        ================
+        arch = sm_90a
+            code for sm_90a
+                Function : _ZN12_GLOBAL__N_115stft_f32_kernelILi0EEEvN8scc_dmma4ArgsE
+            .headerflags    @"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+                /*0a50*/                   DMMA.16x8x8 R24, R20, R16, R24 ;
+                /*0a60*/                   DMMA.16x8x8 R28, R20, R18, R28 ;
+                /*0a70*/                   FFMA R1, R2, R3, R4 ;
+                Function : _ZN12_GLOBAL__N_118passthrough_kernelEPKfPflliiil
+                /*0010*/                   FADD R1, R2, R3 ;
+        """)
+    assert _build.dmma_counts(listing) == {
+        "_ZN12_GLOBAL__N_115stft_f32_kernelILi0EEEvN8scc_dmma4ArgsE": 2,
+        "_ZN12_GLOBAL__N_118passthrough_kernelEPKfPflliiil": 0,
+    }
+
+
 def test_build_fails_loudly_without_nvcc(tmp_path, monkeypatch):
     import torch.utils.cpp_extension as cpp
 

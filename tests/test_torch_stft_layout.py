@@ -252,3 +252,82 @@ def test_loose_precision_clustering_runs_on_the_cpu():
                                                           epochs=1)
     assert lab.shape == labels.shape and 0.0 <= score <= 1.0
     assert np.isfinite(loss)
+
+
+# ---- the FP64 tensor-core kernels' arithmetic, modelled on the CPU ---------
+
+
+def _dmma_model(x, nperseg, hop, epilogue, eps=1e-12):
+    """What csrc/stft_dmma.cuh computes: the float32 samples and bases
+    widened to float64, float64 products and sums, c and s rounded to
+    float32 once, then the float32 epilogue op by op."""
+    from spectrogram_cube_clustering_tpu_torch.signal.stft import (
+        windowed_dft_bases,
+    )
+
+    cos, sin = (torch.from_numpy(v.astype(np.float32)).double()
+                for v in windowed_dft_bases(nperseg))
+    frames = x.double().unfold(-1, nperseg, hop)
+    c = (frames @ cos).float()
+    if epilogue == "c":
+        return c
+    s = (frames @ sin).float()
+    power = c * c + s * s + eps
+    return torch.log10(power) if epilogue == "log" else power
+
+
+def _f64_values(x, nperseg, hop, epilogue):
+    """The float64 oracle (log10(c^2 + s^2 + 1e-12) for log and power, c
+    over its frame's sum |x w| for c) and that frame scale."""
+    from spectrogram_cube_clustering_tpu_torch.signal.stft import (
+        np_hann,
+        windowed_dft_bases,
+    )
+
+    frames = x.double().unfold(-1, nperseg, hop)
+    cos, sin = (torch.from_numpy(v) for v in windowed_dft_bases(nperseg))
+    scale = (frames.abs() @ torch.from_numpy(np_hann(nperseg)))[..., None]
+    c = frames @ cos
+    if epilogue == "c":
+        return c / scale, scale
+    s = frames @ sin
+    return torch.log10(c * c + s * s + 1e-12), scale
+
+
+@pytest.mark.parametrize("kind,epilogue,chunks", [
+    ("variant", "log", 1), ("variant", "log", 2), ("variant", "power", 2),
+    ("variant", "c", 2), ("layout", "log", 2),
+])
+@pytest.mark.parametrize("shape", [(1, 52_050), (1, 200_000), (2, 30_099)])
+def test_dmma_arithmetic_clears_the_card_gates(kind, epilogue, chunks, shape):
+    """The kernels' arithmetic (float64 sums of exact products, one float32
+    rounding of c and s) against the plain versions at phases 4d/4e's
+    gates: within p99.9 1e-4 of the plain version (power through log10, c
+    over its frame's sum |x w|), and against the float64 oracle no worse
+    than the plain version, nor than max(2e-3, 1.5 x the plain version's
+    error)."""
+    from spectrogram_cube_clustering_tpu_torch.ops.cuda_stft_variants import (
+        stft_variant_plain,
+    )
+
+    x = torch.from_numpy(np.random.default_rng(shape[-1]).standard_normal(
+        shape).astype(np.float32))
+    if kind == "layout":
+        plain = torch.stack([stl.stft_layout_plain(row) for row in x])
+    else:
+        plain = stft_variant_plain(x, fmt="f32", epilogue=epilogue,
+                                   chunks=chunks)
+    model = _dmma_model(x, 200, 100, epilogue)
+    ref, scale = _f64_values(x, 200, 100, epilogue)
+
+    def values(v):
+        if epilogue == "c":
+            return v.double() / scale
+        return torch.log10(v.double()) if epilogue == "power" else v.double()
+
+    m, p = values(model), values(plain)
+    gap = (m - p).abs().flatten()
+    assert float(gap.kthvalue(int(0.999 * gap.numel())).values) <= 1e-4
+    m_err, p_err = float((m - ref).abs().max()), float((p - ref).abs().max())
+    assert m_err <= p_err
+    assert m_err <= max(2e-3, 1.5 * p_err)

@@ -252,6 +252,29 @@ def test_csv_writers_match_jax(tmp_path):
         history.save_history({"a": [1], "b": [1, 2]}, str(tmp_path / "x"))
 
 
+@pytest.mark.parametrize("rows", [
+    [{"idx": 0, "label": 2}, {"idx": 1, "label": 0}],
+    [{"idx": i, "label": int(v), "serial": "a"} for i, v in
+     enumerate(np.random.default_rng(2).integers(0, 5, 300))],
+    [],
+], ids=["two", "three_keys", "empty"])
+@pytest.mark.parametrize("serial", [None, "20260101T000000"])
+def test_save_labels_dict_rows_match_jax(tmp_path, rows, serial):
+    """The reference's list of dict rows, written twice into one directory,
+    gives the bytes of the JAX writer's Labels[serial].csv (nothing for
+    no rows)."""
+    (tmp_path / "a").mkdir()
+    (tmp_path / "b").mkdir()
+    for _ in range(2):
+        mine = history.save_labels(rows, str(tmp_path / "a"), serial)
+        theirs = jutils.save_labels(rows, str(tmp_path / "b"), serial)
+    assert os.path.basename(mine) == os.path.basename(theirs)
+    assert os.path.exists(mine) == os.path.exists(theirs) == bool(rows)
+    if rows:
+        with open(mine, "rb") as f, open(theirs, "rb") as g:
+            assert f.read() == g.read()
+
+
 # ---- checkpoints and snapshots ---------------------------------------------
 
 
@@ -429,3 +452,41 @@ def test_cluster_metrics_match_jax(tmp_path, cap):
     assert list(got["df"]["index"]) == list(theirs.index.map(
         lambda v: int(v) if v != "mean" else v))
     assert len(mine) == 4 + 1  # K rows and the mean
+
+
+@pytest.mark.parametrize("how", ["positional", "keyword", "no_path"])
+def test_cluster_metrics_save_false_matches_jax(tmp_path, how):
+    """`save` is the fifth parameter in both packages: with the same
+    positional arguments (rf and the silhouette cap after it) neither
+    writes a file and every returned value agrees within 1e-4; with
+    path None the port writes nothing either (the JAX one raises for
+    path None only when asked to save)."""
+    z, labels = _blobs(m=200, seed=3)
+    rng = np.random.default_rng(4)
+    x = (rng.normal(size=(200, 1, 4, 101)) + labels[:, None, None, None]
+         ).astype(np.float32)
+    path = None if how == "no_path" else str(tmp_path)
+    if how == "positional":
+        got = metrics.cluster_metrics(path, labels, x, z, False, 2, 150,
+                                      device="cpu")
+        want = jmetrics.cluster_metrics(path, labels, x, z, False, 2, 150)
+    else:
+        kw = dict(save=False) if how == "keyword" else {}
+        got = metrics.cluster_metrics(path, labels, x, z, rf=2, device="cpu",
+                                      **kw)
+        want = jmetrics.cluster_metrics(path, labels, x, z, save=False, rf=2)
+    assert os.listdir(tmp_path) == []
+    assert got.keys() == want.keys()
+    for k in want:
+        if k != "df":
+            np.testing.assert_allclose(got[k], want[k], err_msg=k, **TOL)
+    assert np.isfinite(got["silh_scores_Z"]).any()
+    assert np.isfinite(got["silh_scores_X"]).any()
+    for c in ("inner_product", "MSE_avg", "MAE_avg", "silh_score_Z",
+              "silh_score_X"):
+        np.testing.assert_allclose(np.asarray(got["df"][c], float),
+                                   want["df"][c].to_numpy(float), err_msg=c,
+                                   **TOL)
+    with pytest.raises(TypeError):
+        metrics.cluster_metrics(path, labels, x, z, False, 2, None, 2009,
+                                "cpu")  # device is a keyword
