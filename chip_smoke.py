@@ -9,11 +9,16 @@ the script exits non-zero:
 1. device: refuse to run without CUDA; print the card's name and power
    limit (nvidia-smi) and the TF32 flags after the float32 policy;
 2. build: compile csrc/*.cu with nvcc (ops/_build.py), print the seconds,
-   and count the DMMA (FP64 tensor-core) instructions of each
-   instantiation of the two FP64 tensor-core kernels, stft_f32_kernel and
-   stft_layout_kernel, in `cuobjdump -sass` of the library: none may be 0;
-3. kernel: the CUDA STFT against its plain version on the same CUDA
-   tensors at the geometries below, atol 2e-3 on log10;
+   and count in `cuobjdump -sass` of the library the DMMA (FP64
+   tensor-core) instructions of each instantiation of the FP64
+   tensor-core kernels, K1's stft_f64_kernel, stft_f32_kernel and
+   stft_layout_kernel (none may be 0), and the HMMA (TF32 / bf16
+   tensor-core) instructions of each of stft_hmma_kernel's (none may be 0,
+   and none may hold a DMMA); the old wmma kernel must be gone;
+3. kernel: the CUDA STFT (K1) against its plain version on the same CUDA
+   tensors at the geometries below, atol 2e-3 on log10 (the kernel
+   contract) and, since both finish in float64 and round once, within
+   1e-6 (a float32 ulp of the output);
 4. slice: a DEC(n_clusters=5, input_hw=(4, 101)) with seeded random
    weights behind the HTTP server (`serve_http.make_server`, micro-batched
    `DECPredictor`, fused `WaveformFrontend`), sent /healthz, /predict and
@@ -68,8 +73,11 @@ the script exits non-zero:
    against the oracle and K1, and each kernel's time, its plain
    version's, its library call's (`torch.stft` in float32, then |.|^2
    and log10; a shifted add for the passthrough) and its bound; for the
-   HIGHEST (FP64 tensor-core) kernels also the design floor, the direct
-   DFT's FLOP at the FP64 tensor-core peak, and the kernel's share of it;
+   tensor-core kernels also the design floor, the direct DFT's FLOP at
+   the peak of its pipe (FP64 tensor cores; TF32; bf16 with its three
+   passes), and the kernel's share of it; for the passthrough and the
+   shifted add also their device time alone (torch.profiler, "Self
+   CUDA" of their kernels), without the host path an event window holds;
 4e. layouts: the STFT layout kernels (`csrc/stft_layout.cu`) through
    their entry points at the scripts' default blocks: K6 raw-read
    (`experiments.stft_rawread.rawread`, every frame), K7 narrow-out
@@ -97,7 +105,8 @@ the script exits non-zero:
 5. times: kernel, plain STFT and the library call (`torch.stft` in
    float64, |.|^2, log10) at (16, 2^20) with CUDA events, the kernel's
    bound (an FFT's FP64 operations and the HBM bytes at the H100 SXM
-   data sheet's peaks), and the p50 latency of each waveform request.
+   data sheet's peaks), its design floor (the direct DFT at the FP64
+   tensor-core peak) and the p50 latency of each waveform request.
 
 The last two lines are a JSON object describing each kernel and
 {"ok": true, "device": {...}}.
@@ -120,6 +129,7 @@ import numpy as np
 import torch
 
 STFT_ATOL = 2e-3  # log10 units: the kernel contract (tests/test_signal.py:47)
+K1_GAP = 1e-6  # K1 against its float64 plain version: one float32 rounding
 Q_ATOL = 1e-5
 LABEL_GAP = 1e-4
 BIG = (16, 1 << 20)
@@ -131,12 +141,17 @@ CUBE_WAVE = (16, 3_167_400)
 # H100 SXM data sheet: FP64 tensor-core peak (the SIMT FP64 peak is half)
 # and HBM3 bandwidth, at the 700 W limit
 FP64_PEAK = 67e12
-#: the kernels that multiply on the FP64 tensor cores (phase 2)
-DMMA_KERNELS = ("stft_f32_kernel", "stft_layout_kernel")
+#: the kernels that multiply on the FP64 tensor cores, and on the TF32 /
+#: bf16 ones (phase 2)
+DMMA_KERNELS = ("stft_f64_kernel", "stft_f32_kernel", "stft_layout_kernel")
+HMMA_KERNELS = ("stft_hmma_kernel",)
 HBM_BYTES_PER_S = 3.35e12
 # ... and the pipes of the variants: FP32 outside the tensor cores, dense
 # TF32 and BF16 tensor cores
 PIPE_PEAK = {"f32": 67e12, "tf32": 495e12, "bf16x3": 989e12}
+#: the pipe each format's tensor-core kernel multiplies on, and its passes
+FLOOR_PEAK = {"f32": (FP64_PEAK, 1), "tf32": (495e12, 1),
+              "bf16x3": (989e12, 3)}
 VARIANT_P999 = 1e-4  # kernel against plain, benchmarks/stft_outslice_tpu.py:150
 VARIANT_MAIN = BIG         # the variants' main-path input ...
 VARIANT_1D = 4_000_000     # ... and K4's, a 1-D waveform
@@ -257,6 +272,8 @@ def phase_kernel(device, gen, cuda_stft, spectrogram_plain) -> float:
         print(f"stft {nperseg}/{hop} {shape}: max_abs_err {mx:.3e} "
               f"p99.9 {p999:.3e}", flush=True)
         check(mx <= STFT_ATOL, f"stft {nperseg}/{hop} {shape} err {mx}")
+        check(mx <= K1_GAP, f"stft {nperseg}/{hop} {shape} gap {mx} over "
+              f"one float32 rounding")
         worst = max(worst, mx)
     x = torch.randn(BIG, generator=gen, device=device)
     got = cuda_stft.spectrogram_cuda(x, log=False)
@@ -818,12 +835,38 @@ def variant_oracle(x, nperseg, hop, epilogue, rows=None, lanes=None):
     return torch.nn.functional.pad(want, pad, value=-12.0), scale
 
 
-def direct_dft_ms(frames, epilogue, nperseg=200):
-    """The direct DFT's time at the FP64 tensor-core peak: 2 FLOP for each
+def direct_dft_ms(frames, epilogue, nperseg=200, fmt="f32"):
+    """The direct DFT's time at the peak of the format's tensor-core pipe
+    (FP64 for f32, TF32, bf16 for its three passes): 2 FLOP for each
     sample of each frame and each of the nfreq cos (and, but for c only,
-    nfreq sin) columns."""
+    nfreq sin) columns, a pass."""
     cols = (nperseg // 2 + 1) * (1 if epilogue == "c" else 2)
-    return 2 * frames * nperseg * cols / FP64_PEAK * 1e3
+    peak, passes = FLOOR_PEAK[fmt]
+    return 2 * frames * nperseg * cols * passes / peak * 1e3
+
+
+def device_ms(fn, reps: int = 20):
+    """Device time alone of fn() (torch.profiler's "Self CUDA" of the
+    kernels it launches, per call, after a warm-up) and those kernels'
+    names; 0.0 where the profiler shows no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, names = 0.0, []
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+            total += us
+            names.append(evt.key[:60])
+    return total / reps / 1e3, names
 
 
 def variant_values(got, epilogue, scale):
@@ -993,6 +1036,15 @@ def phase_variants(device, gen, card, cuda_stft, spectrogram_windows):
                 lambda: stv.passthrough_plain(x, 100, 2, rows, lanes))
             library_ms = cuda_ms(lambda: xp[:, :-1] + xp[:, 1:])
             flop, out_elems = b * rows * 100, b * rows * lanes
+            # the event windows hold the ctypes wrapper's host path: the
+            # device time alone of each kernel
+            pass_dev, pass_names = device_ms(
+                lambda: stv.passthrough_cuda(x, 100, 2, rows, lanes))
+            add_dev, add_names = device_ms(lambda: xp[:, :-1] + xp[:, 1:])
+            print(f"variant {name} device time alone on {card}: kernel "
+                  f"{pass_dev:.4f} ms {pass_names}, shifted add "
+                  f"{add_dev:.4f} ms {add_names} (0: not measured)",
+                  flush=True)
         else:
             kw, chunks = spec(name, fmt, epilogue, padded, t)
             ms = cuda_ms(lambda: stv.stft_variant_cuda(x, **kw))
@@ -1012,10 +1064,12 @@ def phase_variants(device, gen, card, cuda_stft, spectrogram_windows):
         bound_ms = max(ops_ms, bytes_ms)
         bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
         floor = ""
-        if fmt == "f32":  # the FP64 tensor-core kernel's own floor
-            floor_ms = direct_dft_ms(b * kw.get("rows", frames), epilogue)
-            floor = (f"; design floor {floor_ms:.4f} ms (direct DFT at "
-                     f"{FP64_PEAK:.3g} FLOP/s), kernel at "
+        if fmt is not None:  # the tensor-core kernel's own floor
+            floor_ms = direct_dft_ms(b * kw.get("rows", frames), epilogue,
+                                     fmt=fmt)
+            peak, passes = FLOOR_PEAK[fmt]
+            floor = (f"; design floor {floor_ms:.4f} ms (direct DFT x "
+                     f"{passes} at {peak:.3g} FLOP/s), kernel at "
                      f"{floor_ms / ms:.1%} of it")
         print(f"variant {name} {tuple(x.shape)} on {card}: kernel {ms:.4f} ms "
               f"({x.numel() / ms / 1e6:.3f} G samples/s), plain "
@@ -1038,6 +1092,8 @@ def phase_variants(device, gen, card, cuda_stft, spectrogram_windows):
             "bound_by": bound_by,
             "library_ms": library_ms,
         })
+        if fmt is None:
+            entries[-1].update(device_ms=pass_dev, library_device_ms=add_dev)
     return entries
 
 
@@ -1264,12 +1320,21 @@ def main() -> int:
     for line in _build.build_log().splitlines():
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}", flush=True)
-    counts = _build.dmma_counts(_build.sass())
+    sass = _build.sass()
+    dmma = _build.opcode_counts(sass, "DMMA")
+    hmma = _build.opcode_counts(sass, "HMMA")
     for kernel in DMMA_KERNELS:
-        found = {k: v for k, v in counts.items() if kernel in k}
+        found = {k: v for k, v in dmma.items() if kernel in k}
         print(f"  sass: {kernel}: DMMA per instantiation "
               f"{sorted(found.values())}", flush=True)
         check(bool(found) and all(found.values()), f"{kernel} DMMA {found}")
+    for kernel in HMMA_KERNELS:
+        found = {k: (v, dmma[k]) for k, v in hmma.items() if kernel in k}
+        print(f"  sass: {kernel}: (HMMA, DMMA) per instantiation "
+              f"{sorted(found.values())}", flush=True)
+        check(len(found) == 6 and all(h and not d for h, d in found.values()),
+              f"{kernel} HMMA {found}")
+    check(not any("stft_mma_kernel" in k for k in dmma), "wmma kernel gone")
 
     # 3. kernel against plain
     gen = torch.Generator(device=device).manual_seed(args.seed)
@@ -1409,6 +1474,7 @@ def main() -> int:
     ops_ms, bytes_ms = flop / FP64_PEAK * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     bound_ms = max(ops_ms, bytes_ms)
     bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+    floor_ms = direct_dft_ms(b * frames, "log")
     print(f"stft {BIG} on {card}: kernel {kernel_ms:.4f} ms "
           f"({n / kernel_ms / 1e6:.3f} G samples/s; runs {kern}), plain "
           f"{plain_ms:.4f} ms ({n / plain_ms / 1e6:.3f} G samples/s; runs "
@@ -1416,8 +1482,9 @@ def main() -> int:
           f"(max_abs_err vs kernel {lib_err:.3e}); bound {bound_ms:.4f} ms "
           f"by {bound_by} ({flop:.4e} FP64 FLOP at {FP64_PEAK:.3g}/s = "
           f"{ops_ms:.4f} ms; {nbytes} bytes at {HBM_BYTES_PER_S:.3g} B/s = "
-          f"{bytes_ms:.4f} ms), kernel at {bound_ms / kernel_ms:.1%} of it",
-          flush=True)
+          f"{bytes_ms:.4f} ms), kernel at {bound_ms / kernel_ms:.1%} of it; "
+          f"design floor {floor_ms:.4f} ms (direct DFT at {FP64_PEAK:.3g} "
+          f"FLOP/s), kernel at {floor_ms / kernel_ms:.1%} of it", flush=True)
     for name, ms in latency.items():
         print(f"p50 latency {name} on {card}: {ms:.2f} ms", flush=True)
 

@@ -1,170 +1,64 @@
 // Hann-windowed DFT log-power spectrogram for Hopper (sm_90a).
 //
-// Replaces spectrogram_cube_clustering_tpu/ops/pallas_stft.py::_stft_kernel.
-// Computes exactly signal.stft.spectrogram_plain of the torch package:
+// Replaces spectrogram_cube_clustering_tpu/ops/pallas_stft.py::_stft_kernel
+// (K1) at its default precision, "highest". Computes exactly
+// signal.stft.spectrogram_plain of the torch package:
 //   out[b, f, k] = log10(|sum_n x[b, f*hop + n] * hann[n] * e^{-2 pi i n k / nperseg}|^2 + eps)
-// (or the bare power when log_out == 0), for x (B, T) float32 and
-// out (B, F, nfreq) float32, F = (T - nperseg) / hop + 1, nfreq = nperseg/2 + 1.
+// (or the bare power, without eps, when log_out == 0), for x (B, T) float32
+// and out (B, F, nfreq) float32, F = (T - nperseg) / hop + 1,
+// nfreq = nperseg/2 + 1.
 //
 // Design. The DFT keeps only nfreq ~ nperseg/2 bins, so it runs as a skinny
-// GEMM of the framed waveform (F, nperseg) against the windowed cos/sin bases
-// (nperseg, nfreq); an FFT would write the complex spectrum to device memory
-// and gains nothing at nperseg ~ 200. One launch covers every batch row, every
-// frame and every bin: block (blockIdx.x) = one tile of kTileFrames frames of
-// one batch row, blockIdx.y = one tile of kTileBins bins. The reduction over
-// n walks the segment in chunks of kChunk samples: each chunk stages the
-// tile's (frames x kChunk) slice of the waveform and the (kChunk x bins)
-// slice of both bases in shared memory, then every thread accumulates
-// kFramesPerLane frames x kBinsPerWarp bins of c and s in registers. Lanes
-// own frames (odd shared-memory pitch, so their strided reads hit distinct
-// banks) and warps own bins (the basis reads are warp-uniform broadcasts).
-// The tile's results go back through shared memory so that the store to
-// device memory is coalesced along bins. Ragged frame and bin edges are
-// masked; samples past the segment are zero.
+// GEMM of the framed waveform (F, nperseg) against the float64 windowed
+// cos/sin bases (nperseg, nfreq); an FFT would write the complex spectrum to
+// device memory and gains nothing at nperseg ~ 200. stft_f64_kernel is the
+// flat loop of csrc/stft_mma.cuh with its F64 policy over float64 bases:
+// one launch of a persistent grid covers every batch row, frame and bin;
+// each block keeps its bins' float64 bases in shared memory in fragment
+// order for its whole walk (at 200 / 100 the 332,800 B of both bases do
+// not fit beside the staging buffers: two groups of blocks, 56 or 48 bins
+// each), a staging warp copies each 64-frame tile's samples once with
+// cp.async, double-buffered, and eight warps multiply them on the FP64
+// tensor cores (mma.sync m16n8k8 .f64, DMMA), each A fragment widened to
+// float64 as it is loaded. The epilogue finishes c^2 + s^2 (+ eps, log10)
+// in float64 and rounds to float32 once; the result tile is stored a row
+// segment at a time. Ragged frame and bin edges are masked; samples past
+// the segment are zero.
 //
-// Precision. Products and sums are float64 (DFMA), and the bases are float64.
-// The windowed DFT cancels catastrophically at near-zero DC and Nyquist bins
+// Precision. Products and sums are float64 and the bases are float64. The
+// windowed DFT cancels catastrophically at near-zero DC and Nyquist bins
 // (their sin term is identically zero): float32 accumulation, or float32
 // bases with float64 accumulation, leaves log10 errors of 1e-2 to 0.26
 // against the exact value at a (16, 2^20) batch of unit Gaussian noise,
 // while a float64 sum is exact to ~1e-13 there. TF32 tensor cores are worse
 // still. The result is rounded to float32 once, after the log.
 //
-// Bound. Per frame the DFT costs 4 * nperseg * nfreq FLOP (two FMAs per
-// sample and bin), i.e. ~808 FLOP per input sample at nperseg=200, hop=100,
-// against ~8 bytes of device-memory traffic per sample (4 read, ~4 written):
-// ~100 FLOP/byte, far above the H100's ~10 FLOP/byte float64 ridge (33.5
-// TFLOP/s FP64 / 3.35 TB/s). The kernel is bound by the FP64 pipes: at most
-// ~41 G samples/s at 200/100 on a 700 W H100 SXM, before the bin-tile
-// padding (101 of 112 bins useful). Per j-step a thread issues 32 DFMAs
-// against 4 lane-strided 8-byte loads and 4 broadcast 16-byte loads, which
-// keeps shared-memory bandwidth below the DFMA rate.
+// Bound. The function reads the waveform once and writes the spectrogram
+// once: ~8 bytes of device memory per sample at 200/100 against an FFT's
+// ~44 FP64 FLOP per sample, so bytes bound it (0.0403 ms at a (16, 2^20)
+// batch at 3.35 TB/s). This kernel does the direct DFT, 4 * nperseg * nfreq
+// FLOP a frame (~808 a sample at 200/100); the floor of its design is that
+// DFT at the FP64 tensor-core peak of 67 TFLOP/s: 0.2023 ms at (16, 2^20).
 //
-// Shared memory: kTileFrames * (kChunk + 1) + kChunk * kTileBins * 2 doubles
-// = 52,224 bytes per block, whatever nperseg and hop are (the waveform is
-// staged chunk by chunk, not as a whole (TF - 1) * hop + nperseg span), so
-// no geometry is refused for shared memory. Limits: grid.x = B * ceil(F /
-// 128) < 2^31 and nfreq / 16 < 65536 tiles, checked by the launcher.
+// Limits: batch < 2^31 and B * ceil(F / 64) < 2^31 tiles, checked by the
+// launcher; any nperseg and hop (plan() splits bins into groups and K into
+// chunks where the bases do not fit in shared memory).
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "stft_mma.cuh"
+
 namespace {
 
-constexpr int kLanes = 32;
-constexpr int kWarps = 4;
-constexpr int kThreads = kLanes * kWarps;
-constexpr int kFramesPerLane = 4;
-constexpr int kBinsPerWarp = 4;
-constexpr int kTileFrames = kLanes * kFramesPerLane;  // 128
-constexpr int kTileBins = kWarps * kBinsPerWarp;      // 16
-constexpr int kChunk = 40;                            // samples per stage
-constexpr int kXPitch = kChunk + 1;  // odd: lane-strided doubles never collide
-constexpr int kOutPitch = kTileBins + 1;
-constexpr int kSmemXDoubles = kTileFrames * kXPitch;
-constexpr int kSmemBDoubles = kChunk * kTileBins * 2;
-constexpr size_t kSmemBytes =
-    size_t(kSmemXDoubles + kSmemBDoubles) * sizeof(double);
+using scc_mma::kLog64;
+using scc_mma::kPower64;
 
-static_assert(kSmemXDoubles % 2 == 0, "basis tile must be 16-byte aligned");
-static_assert(kTileFrames * kOutPitch * sizeof(float) <=
-                  kSmemXDoubles * sizeof(double),
-              "output tile reuses the waveform tile");
-
-__global__ void __launch_bounds__(kThreads)
-    stft_kernel(const float* __restrict__ x, const double* __restrict__ cosb,
-                const double* __restrict__ sinb, float* __restrict__ out,
-                int64_t t, int64_t n_frames, int n_ftiles, int nperseg,
-                int hop, int nfreq, int log_out, double eps) {
-  extern __shared__ double smem[];
-  double* xs = smem;                  // [kTileFrames][kXPitch]
-  double* bs = smem + kSmemXDoubles;  // [kChunk][kTileBins][cos, sin]
-
-  const int64_t b = blockIdx.x / n_ftiles;
-  const int64_t f0 = int64_t(blockIdx.x % n_ftiles) * kTileFrames;
-  const int k0 = blockIdx.y * kTileBins;
-  const int warp = threadIdx.x / kLanes;
-  const int lane = threadIdx.x % kLanes;
-  const float* xb = x + b * t;
-
-  double c[kFramesPerLane][kBinsPerWarp];
-  double s[kFramesPerLane][kBinsPerWarp];
-#pragma unroll
-  for (int i = 0; i < kFramesPerLane; ++i) {
-#pragma unroll
-    for (int q = 0; q < kBinsPerWarp; ++q) {
-      c[i][q] = 0.0;
-      s[i][q] = 0.0;
-    }
-  }
-
-  for (int n0 = 0; n0 < nperseg; n0 += kChunk) {
-    __syncthreads();  // the previous chunk's readers are done
-    for (int e = threadIdx.x; e < kTileFrames * kChunk; e += kThreads) {
-      const int fr = e / kChunk;
-      const int j = e - fr * kChunk;
-      const int64_t f = f0 + fr;
-      const int n = n0 + j;
-      double v = 0.0;
-      if (f < n_frames && n < nperseg) v = double(__ldg(xb + f * hop + n));
-      xs[fr * kXPitch + j] = v;
-    }
-    for (int e = threadIdx.x; e < kChunk * kTileBins; e += kThreads) {
-      const int j = e / kTileBins;
-      const int q = e - j * kTileBins;
-      const int n = n0 + j;
-      const int k = k0 + q;
-      double cv = 0.0, sv = 0.0;
-      if (n < nperseg && k < nfreq) {
-        cv = __ldg(cosb + int64_t(n) * nfreq + k);
-        sv = __ldg(sinb + int64_t(n) * nfreq + k);
-      }
-      bs[2 * e] = cv;
-      bs[2 * e + 1] = sv;
-    }
-    __syncthreads();
-
-    const int jn = min(kChunk, nperseg - n0);
-    const double2* brow = reinterpret_cast<const double2*>(bs) +
-                          warp * kBinsPerWarp;
-    for (int j = 0; j < jn; ++j) {
-      double xv[kFramesPerLane];
-#pragma unroll
-      for (int i = 0; i < kFramesPerLane; ++i)
-        xv[i] = xs[(lane + kLanes * i) * kXPitch + j];
-#pragma unroll
-      for (int q = 0; q < kBinsPerWarp; ++q) {
-        const double2 cs = brow[j * kTileBins + q];
-#pragma unroll
-        for (int i = 0; i < kFramesPerLane; ++i) {
-          c[i][q] = fma(xv[i], cs.x, c[i][q]);
-          s[i][q] = fma(xv[i], cs.y, s[i][q]);
-        }
-      }
-    }
-  }
-
-  __syncthreads();  // every thread is done with the waveform tile
-  float* os = reinterpret_cast<float*>(smem);  // [kTileFrames][kOutPitch]
-#pragma unroll
-  for (int i = 0; i < kFramesPerLane; ++i) {
-#pragma unroll
-    for (int q = 0; q < kBinsPerWarp; ++q) {
-      const double p = c[i][q] * c[i][q] + s[i][q] * s[i][q];
-      os[(lane + kLanes * i) * kOutPitch + warp * kBinsPerWarp + q] =
-          log_out ? float(log10(p + eps)) : float(p);
-    }
-  }
-  __syncthreads();
-  float* ob = out + b * n_frames * nfreq;
-  for (int e = threadIdx.x; e < kTileFrames * kTileBins; e += kThreads) {
-    const int fr = e / kTileBins;
-    const int q = e - fr * kTileBins;
-    const int64_t f = f0 + fr;
-    const int k = k0 + q;
-    if (f < n_frames && k < nfreq) ob[f * nfreq + k] = os[fr * kOutPitch + q];
-  }
+template <int kEpi>
+__global__ void __launch_bounds__(scc_mma::kThreads, 1)
+    stft_f64_kernel(scc_mma::Args<double> a) {
+  scc_mma::body<scc_mma::F64, false, 0, kEpi>(a);
 }
 
 }  // namespace
@@ -177,20 +71,28 @@ extern "C" int scc_stft_launch(const float* x, const double* cosb,
                                int64_t t, int64_t n_frames, int nperseg,
                                int hop, int nfreq, int log_out, double eps,
                                void* stream) {
-  const int64_t n_ftiles = (n_frames + kTileFrames - 1) / kTileFrames;
-  const int64_t grid_x = n_ftiles * batch;
-  const int64_t grid_y = (nfreq + kTileBins - 1) / kTileBins;
-  if (batch < 1 || n_frames < 1 || grid_x > INT32_MAX || grid_y > 65535)
+  if (batch < 1 || batch > INT32_MAX || n_frames < 1 || nperseg < 1 ||
+      hop < 1 || nfreq < 1 || t < 1)
     return int(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      stft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(kSmemBytes));
-  if (err != cudaSuccess) return int(err);
-  stft_kernel<<<dim3(unsigned(grid_x), unsigned(grid_y)), kThreads,
-                kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      x, cosb, sinb, out, t, n_frames, int(n_ftiles), nperseg, hop, nfreq,
-      log_out, eps);
-  return int(cudaGetLastError());
+  scc_mma::Args<double> a{};
+  a.x = x;
+  a.cosb = cosb;
+  a.sinb = sinb;
+  a.out = out;
+  a.t = t;
+  a.n_rows = n_frames;
+  a.batch = int(batch);
+  a.nperseg = nperseg;
+  a.hop = hop;
+  a.nfreq = nfreq;
+  a.n_cols = nfreq;
+  a.eps = eps;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (log_out)
+    return scc_mma::launch<scc_mma::F64, 2>(stft_f64_kernel<kLog64>, a,
+                                            false, s);
+  return scc_mma::launch<scc_mma::F64, 2>(stft_f64_kernel<kPower64>, a, false,
+                                          s);
 }
 
 extern "C" const char* scc_cuda_error_string(int code) {

@@ -26,7 +26,7 @@
 // kernels' order (c += Y_j[j : j + fpb]); the kernel's float64 sums make
 // the order immaterial at float32 output.
 //
-// Design. The layout kernels stage hop rows (csrc/stft_dmma.cuh): a block
+// Design. The layout kernels stage hop rows (csrc/stft_mma.cuh): a block
 // owns 64 consecutive frames (a tile) and stages their 64 + ratio - 1
 // hop-sample rows (the tile and its halo of ratio - 1 rows; the TPU's 8-row
 // halo block and 128-lane padding are TPU tiling and are not copied) once,
@@ -82,7 +82,7 @@
 
 #include <cstdint>
 
-#include "stft_dmma.cuh"
+#include "stft_mma.cuh"
 
 namespace {
 
@@ -93,16 +93,16 @@ enum Layout : int { kRawRead = 0, kOutSlice = 1, kFusedBasis = 2 };
 
 // kHop = 0 takes the hop at run time; kFused: one pass over cos|sin.
 template <bool kFused, int kHop>
-__global__ void __launch_bounds__(scc_dmma::kThreads, 1)
-    stft_layout_kernel(scc_dmma::Args a) {
-  scc_dmma::body<!kFused, kHop, scc_dmma::kLog>(a);
+__global__ void __launch_bounds__(scc_mma::kThreads, 1)
+    stft_layout_kernel(scc_mma::Args<float> a) {
+  scc_mma::body<scc_mma::F64, !kFused, kHop, scc_mma::kLog>(a);
 }
 
 template <bool kFused, int kHop>
 int launch_layout(const float* x, const float* cosb, const float* sinb,
                   float* out, int64_t t, int64_t n_out, int nperseg, int hop,
                   int nfreq, float eps, cudaStream_t stream) {
-  scc_dmma::Args a{};
+  scc_mma::Args<float> a{};
   a.x = x;
   a.cosb = cosb;
   a.sinb = sinb;
@@ -115,8 +115,8 @@ int launch_layout(const float* x, const float* cosb, const float* sinb,
   a.nfreq = nfreq;
   a.n_cols = nfreq;
   a.eps = eps;
-  return scc_dmma::launch<2>(stft_layout_kernel<kFused, kHop>, a, true,
-                             stream);
+  return scc_mma::launch<scc_mma::F64, 2>(stft_layout_kernel<kFused, kHop>, a,
+                                          true, stream);
 }
 
 }  // namespace

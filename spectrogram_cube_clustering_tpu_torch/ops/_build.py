@@ -7,9 +7,10 @@ a hash of the sources, the headers (`csrc/*.cuh`) and the flags, in the
 package's `build/` directory (gitignored). A library whose hash matches is
 reused; a changed source builds anew. Importing this module runs nothing:
 the compiler runs on the first `load_library()` call, and a failed build
-raises with the compiler's output. `dmma_counts` reads the built library's
-SASS (`cuobjdump -sass`, beside `nvcc`) for the FP64 tensor-core
-instructions of each kernel.
+raises with the compiler's output. `opcode_counts` reads the built
+library's SASS (`cuobjdump -sass`, beside `nvcc`) for the instructions of
+one opcode in each kernel: DMMA (FP64 tensor cores) or HMMA (TF32 and bf16
+tensor cores).
 """
 
 from __future__ import annotations
@@ -163,15 +164,17 @@ def sass() -> str:
     return proc.stdout
 
 
-def dmma_counts(text: str) -> dict:
+def opcode_counts(text: str, opcode: str) -> dict:
     """Per kernel of a `cuobjdump -sass` listing (its mangled name), the
-    number of DMMA instructions (FP64 tensor-core MMAs)."""
+    number of instructions of `opcode` (any variant: "HMMA" counts
+    HMMA.1688.F32.TF32 and HMMA.16816.F32.BF16)."""
+    op = re.compile(rf"\b{re.escape(opcode)}\b")
     counts, name = {}, None
     for line in text.splitlines():
         head = re.match(r"\s*Function\s*:\s*(\S+)", line)
         if head:
             name = head.group(1)
             counts[name] = 0
-        elif name is not None and re.search(r"\bDMMA\b", line):
+        elif name is not None and op.search(line):
             counts[name] += 1
     return counts

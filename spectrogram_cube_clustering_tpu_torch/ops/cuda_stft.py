@@ -2,11 +2,14 @@
 
 The kernel replaces `spectrogram_cube_clustering_tpu/ops/pallas_stft.py`
 `_stft_kernel`: Hann window, DFT and log-power fused in one launch over
-every batch row, frame and bin of a (B, T) float32 waveform. It accumulates
-in float64 because the DFT cancels catastrophically at near-zero DC and
-Nyquist bins; it is bound by the card's FP64 pipes (~808 FLOP per sample
-at nperseg=200, hop=100, against ~8 bytes of traffic). The source note in
-`csrc/stft.cu` gives the design and the bound.
+every batch row, frame and bin of a (B, T) float32 waveform. It multiplies
+the float32 samples by the float64 windowed bases and sums in float64, on
+the card's FP64 tensor cores (DMMA), and finishes the log-power in float64,
+because the DFT cancels catastrophically at near-zero DC and Nyquist bins.
+The function is bound by bytes (~8 a sample at nperseg=200, hop=100); the
+kernel's direct DFT (~808 FLOP a sample) is bound by the card's FP64
+tensor-core pipes. The source note in `csrc/stft.cu` gives the design and
+the bound.
 
 `spectrogram` takes the plain version (`signal.stft.spectrogram_plain`)
 for a tensor on the CPU and only then; a CUDA tensor launches the kernel or

@@ -13,10 +13,11 @@ kernels' operands), in one operand format:
 - ``f32``: JAX's HIGHEST: the float32 operands' products and sums in
   float64 on the FP64 tensor cores, c and s rounded to float32 once (the
   plain version: float32 products and sums);
-- ``tf32``: both operands rounded to TF32 (`round_tf32`), one tensor-core
-  pass with float32 sums (JAX's DEFAULT of a float32 dot on this card);
+- ``tf32``: both operands rounded to TF32 (`round_tf32`), one pass on the
+  TF32 tensor cores with float32 sums (JAX's DEFAULT of a float32 dot on
+  this card);
 - ``bf16x3``: both operands split into bf16 hi + lo (`split_bf16`),
-  hi·hi + hi·lo + lo·hi with float32 sums (K3);
+  hi·hi + hi·lo + lo·hi on the BF16 tensor cores with float32 sums (K3);
 
 then one epilogue, ``log`` (log10(c² + s² + eps)), ``power`` (c² + s² + eps)
 or ``c``, written narrow (B, n_frames, nfreq) or, with `rows` and `lanes`,
@@ -82,8 +83,8 @@ def _round_bits(x: torch.Tensor, half: int, ties_even: bool) -> torch.Tensor:
 
 def round_tf32(x: torch.Tensor) -> torch.Tensor:
     """float32 -> float32 holding the nearest TF32 value (10 fraction
-    bits), ties away from zero: `cvt.rna.tf32.f32`,
-    `wmma::__float_to_tf32`."""
+    bits), ties away from zero: `cvt.rna.tf32.f32`, as the TF32 kernel
+    rounds its operands."""
     return _round_bits(x, 1 << 12, ties_even=False)
 
 

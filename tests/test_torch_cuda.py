@@ -81,6 +81,35 @@ def test_kernel_matches_plain(cuda_device, nperseg, hop, shape):
     torch.testing.assert_close(got, want, rtol=0, atol=STFT_ATOL)
 
 
+#: chip_smoke.py's phase-3 geometries: one frame, ragged tails, nperseg %
+#: hop != 0 (250 / 100), a 64-frame tile over 71 hop rows (128 / 16),
+#: float64 bases in several groups of blocks (256 / 64, 200 / 100) and the
+#: (16, 2^20) batch
+K1_GEOMETRIES = [
+    (200, 100, (1, 200)), (200, 100, (1, 950)), (200, 100, (1, 1_100)),
+    (200, 100, (1, 60_000)), (200, 100, (1, 1 << 20)),
+    (256, 64, (1, 10_000)), (128, 16, (1, 20_000)), (100, 100, (1, 5_003)),
+    (120, 40, (1, 7_919)), (192, 32, (1, 6_144)), (160, 80, (1, 9_760)),
+    (250, 100, (1, 10_000)), (200, 100, (16, 1 << 20)),
+]
+
+
+@pytest.mark.parametrize("nperseg,hop,shape", K1_GEOMETRIES)
+def test_k1_on_the_fp64_tensor_cores_at_every_smoke_geometry(
+        cuda_device, nperseg, hop, shape):
+    """Float64 products and sums of float64 bases and a float64 epilogue,
+    rounded once: within 1e-6 of the float64 rfft on log10 (a float32 ulp
+    of the output), and the bare power within rtol 1e-6."""
+    x = _randn(shape, cuda_device, seed=nperseg + hop + shape[-1])
+    got = cuda_stft.spectrogram_cuda(x, nperseg=nperseg, hop=hop)
+    want = stft.spectrogram_plain(x, nperseg=nperseg, hop=hop)
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= 1e-6
+    got = cuda_stft.spectrogram_cuda(x, nperseg=nperseg, hop=hop, log=False)
+    want = stft.spectrogram_plain(x, nperseg=nperseg, hop=hop, log=False)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+
+
 def test_kernel_power_without_log(cuda_device):
     x = _randn((2, 30_000), cuda_device)
     got = cuda_stft.spectrogram_cuda(x, log=False)
@@ -377,16 +406,13 @@ F32_EDGES = [
 ]
 
 
-@pytest.mark.parametrize("epilogue", stv.EPILOGUES)
-@pytest.mark.parametrize("nperseg,hop,shape,rows", F32_EDGES)
-def test_f32_variant_kernel_edges(cuda_device, nperseg, hop, shape, rows,
-                                  epilogue):
-    """The FP64 tensor-core kernel at its edges: p99.9 of the gap to the
-    plain version within 1e-4 (c: 1e-5 of its frame's sum |x * w|), log
-    within max(2e-3, 1.5 x the plain version's error) of float64, and
-    K4's padded lanes exactly the plain version's zero power."""
-    x = _randn(shape, cuda_device, seed=nperseg + hop)
-    kw = dict(fmt="f32", epilogue=epilogue)
+def _check_variant_edge(device, fmt, nperseg, hop, shape, rows, epilogue):
+    """A variant kernel at one edge: p99.9 of the gap to the plain version
+    within 1e-4 (c: 1e-5 of its frame's sum |x * w|), log within max(2e-3,
+    1.5 x the plain version's error) of float64, and K4's padded lanes
+    exactly the plain version's zero power."""
+    x = _randn(shape, device, seed=nperseg + hop)
+    kw = dict(fmt=fmt, epilogue=epilogue)
     if rows:
         kw.update(rows=rows, lanes=128)
     got = stv.stft_variant_cuda(x, nperseg, hop, **kw)
@@ -395,13 +421,13 @@ def test_f32_variant_kernel_edges(cuda_device, nperseg, hop, shape, rows,
     assert got.shape == want.shape and bool(torch.isfinite(got).all())
     nfreq = nperseg // 2 + 1
     if rows:
-        pad = {"log": torch.log10(torch.tensor(1e-12, device=cuda_device)),
-               "power": torch.tensor(1e-12, device=cuda_device),
-               "c": torch.tensor(0.0, device=cuda_device)}[epilogue]
+        pad = {"log": torch.log10(torch.tensor(1e-12, device=device)),
+               "power": torch.tensor(1e-12, device=device),
+               "c": torch.tensor(0.0, device=device)}[epilogue]
         assert torch.equal(got[..., nfreq:], want[..., nfreq:])
         assert bool((got[..., nfreq:] == pad).all())
     if epilogue == "c":
-        win = torch.from_numpy(stft.np_hann(nperseg)).to(cuda_device)
+        win = torch.from_numpy(stft.np_hann(nperseg)).to(device)
         need = (got.shape[1] - 1) * hop + nperseg
         xp = torch.nn.functional.pad(x.double(),
                                      (0, max(0, need - shape[-1])))
@@ -421,19 +447,63 @@ def test_f32_variant_kernel_edges(cuda_device, nperseg, hop, shape, rows,
     assert k_err <= max(2e-3, 1.5 * p_err)
 
 
+@pytest.mark.parametrize("epilogue", stv.EPILOGUES)
+@pytest.mark.parametrize("nperseg,hop,shape,rows", F32_EDGES)
+def test_f32_variant_kernel_edges(cuda_device, nperseg, hop, shape, rows,
+                                  epilogue):
+    """The FP64 tensor-core kernel at its edges (`_check_variant_edge`)."""
+    _check_variant_edge(cuda_device, "f32", nperseg, hop, shape, rows,
+                        epilogue)
+
+
+#: the TF32 / bf16x3 kernel's edges: ragged frame tiles, K4's padded
+#: layout, bins split among two groups of blocks (256 / 64: 17 bin tiles
+#: over a cap of 14), a 64-frame tile over 71 hop rows (128 / 16), a K
+#: that is no multiple of bf16's k-step of 16 (200, 120)
+HMMA_EDGES = [
+    (200, 100, (2, 30_099), None),
+    (200, 100, (1, 6_499), None),
+    (200, 100, (2, 30_099), 512),
+    (256, 64, (2, 20_000), None),
+    (128, 16, (1, 20_000), None),
+    (120, 40, (1, 7_919), None),
+]
+
+
+@pytest.mark.parametrize("epilogue", stv.EPILOGUES)
+@pytest.mark.parametrize("nperseg,hop,shape,rows", HMMA_EDGES)
+@pytest.mark.parametrize("fmt", ["tf32", "bf16x3"])
+def test_hmma_variant_kernel_edges(cuda_device, fmt, nperseg, hop, shape,
+                                   rows, epilogue):
+    """The TF32 and bf16x3 tensor-core kernel at its edges
+    (`_check_variant_edge`)."""
+    _check_variant_edge(cuda_device, fmt, nperseg, hop, shape, rows,
+                        epilogue)
+
+
 def test_sass_has_dmma_in_both_redesigned_kernels(cuda_device):
-    """Every instantiation of stft_f32_kernel (3 epilogues) and of
-    stft_layout_kernel (3 layouts) multiplies on the FP64 tensor cores: an
-    old FP32 SIMT body (Kahan, Dot2) would hold no DMMA."""
+    """Every instantiation of K1's stft_f64_kernel (log, power), of
+    stft_f32_kernel (3 epilogues) and of stft_layout_kernel (3 layouts)
+    multiplies on the FP64 tensor cores, and every one of stft_hmma_kernel
+    (TF32 and bf16x3, 3 epilogues) on the TF32/bf16 tensor cores without a
+    DMMA; the old SIMT and wmma kernels are gone."""
     from spectrogram_cube_clustering_tpu_torch.ops import _build
 
-    counts = _build.dmma_counts(_build.sass())
-    for kernel, n in (("stft_f32_kernel", 3), ("stft_layout_kernel", 3)):
-        found = {k: v for k, v in counts.items() if kernel in k}
+    text = _build.sass()
+    dmma = _build.opcode_counts(text, "DMMA")
+    hmma = _build.opcode_counts(text, "HMMA")
+    for kernel, n in (("stft_f64_kernel", 2), ("stft_f32_kernel", 3),
+                      ("stft_layout_kernel", 3)):
+        found = {k: v for k, v in dmma.items() if kernel in k}
         assert len(found) == n, (kernel, found)
         assert all(v > 0 for v in found.values()), found
-    assert not any(v for k, v in counts.items()
-                   if "stft_mma_kernel" in k or "passthrough" in k)
+    found = {k: (v, dmma[k]) for k, v in hmma.items()
+             if "stft_hmma_kernel" in k}
+    assert len(found) == 6, found
+    assert all(h > 0 and d == 0 for h, d in found.values()), found
+    assert not any("stft_mma_kernel" in k or "11stft_kernel" in k
+                   for k in dmma)
+    assert not any(v for k, v in dmma.items() if "passthrough" in k)
 
 
 @pytest.mark.parametrize("fpb", [256, 1024])

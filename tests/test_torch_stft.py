@@ -178,26 +178,45 @@ def test_build_is_keyed_by_headers(tmp_path, monkeypatch):
     assert _build.library_path() != first
 
 
+#: a `cuobjdump -sass` listing of three kernels: DMMA, HMMA, neither
+SASS_LISTING = textwrap.dedent("""
+    Fatbin elf code:
+    ================
+    arch = sm_90a
+        code for sm_90a
+            Function : _ZN12_GLOBAL__N_115stft_f32_kernelILi0EEEvN7scc_mma4ArgsIfEE
+        .headerflags    @"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+            /*0a50*/                   DMMA.16x8x8 R24, R20, R16, R24 ;
+            /*0a60*/                   DMMA.16x8x8 R28, R20, R18, R28 ;
+            /*0a70*/                   FFMA R1, R2, R3, R4 ;
+            Function : _ZN12_GLOBAL__N_116stft_hmma_kernelILi1ELi0EEEvN7scc_mma4ArgsIfEE
+            /*0b10*/                   HMMA.16816.F32.BF16 R8, R4, R12, R8 ;
+            /*0b20*/                   HMMA.16816.F32.BF16 R8, R16, R2, R8 ;
+            /*0b30*/                   HMMA.1688.F32.TF32 R8, R16, R2, R8 ;
+            /*0b40*/                   FADD R8, R8, R9 ;
+            Function : _ZN12_GLOBAL__N_118passthrough_kernelEPKfPflliiil
+            /*0010*/                   FADD R1, R2, R3 ;
+    """)
+
+
 def test_dmma_counts_reads_a_sass_listing():
     """DMMA instructions are counted under the function they belong to,
     and a function without any counts 0."""
-    listing = textwrap.dedent("""
-        Fatbin elf code:
-        ================
-        arch = sm_90a
-            code for sm_90a
-                Function : _ZN12_GLOBAL__N_115stft_f32_kernelILi0EEEvN8scc_dmma4ArgsE
-            .headerflags    @"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
-                /*0a50*/                   DMMA.16x8x8 R24, R20, R16, R24 ;
-                /*0a60*/                   DMMA.16x8x8 R28, R20, R18, R28 ;
-                /*0a70*/                   FFMA R1, R2, R3, R4 ;
-                Function : _ZN12_GLOBAL__N_118passthrough_kernelEPKfPflliiil
-                /*0010*/                   FADD R1, R2, R3 ;
-        """)
-    assert _build.dmma_counts(listing) == {
-        "_ZN12_GLOBAL__N_115stft_f32_kernelILi0EEEvN8scc_dmma4ArgsE": 2,
+    assert _build.opcode_counts(SASS_LISTING, "DMMA") == {
+        "_ZN12_GLOBAL__N_115stft_f32_kernelILi0EEEvN7scc_mma4ArgsIfEE": 2,
+        "_ZN12_GLOBAL__N_116stft_hmma_kernelILi1ELi0EEEvN7scc_mma4ArgsIfEE": 0,
         "_ZN12_GLOBAL__N_118passthrough_kernelEPKfPflliiil": 0,
     }
+
+
+def test_opcode_counts_take_every_variant_of_an_opcode():
+    """HMMA counts both its TF32 and bf16 shapes, and no FADD or DMMA;
+    a name that is only part of an opcode counts nothing."""
+    hmma = _build.opcode_counts(SASS_LISTING, "HMMA")
+    assert list(hmma.values()) == [0, 3, 0]
+    assert list(_build.opcode_counts(SASS_LISTING, "FADD").values()) == \
+        [0, 1, 1]
+    assert not any(_build.opcode_counts(SASS_LISTING, "MMA").values())
 
 
 def test_build_fails_loudly_without_nvcc(tmp_path, monkeypatch):
