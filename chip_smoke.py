@@ -53,7 +53,24 @@ the script exits non-zero:
    directories, no figures); the DEC-predict labels must reach NMI >= 0.90
    against the kinds, q's rows sum to 1 within the rounding of its K
    values to 5 decimals, and cluster_performance.csv hold K rows. Stage
-   walls, build_cube seconds and load_data read seconds are printed;
+   walls, build_cube seconds, load_data read seconds and each stage's
+   peak device memory are printed;
+4g. stream: the same five stages with `loadmode = stream` (4 loader
+   workers) from 4c's cube and waveform, which are not built again; the
+   same artifact names and NMI gate. Then one AEC stream epoch on the cube
+   with `stream_transfer_dtype` bfloat16 and one with int8, each within
+   the JAX tests' rtol (0.02, 0.03) of the float32 wire's losses from the
+   same weights; and one /predict_waveform request of 400,000 samples of
+   the waveform source per wire (float32, bfloat16, float16, int8), each
+   through a server of that wire with the stream run's trained DEC, held
+   within 1e-3 in q (labels equal where clear) to the same trained DEC on
+   the CPU over the same wire (the CPU route is held to the JAX frontend
+   at a sharp q by tests/test_torch_wire.py); and the same request in
+   process to a DEC with seeded random weights, the model of the JAX
+   serve tests, every reduced wire against its float32 answer within
+   those tests' bounds.
+   Prints stage walls, the loader's windows/s to the card per wire, and
+   each stage's peak device memory;
 4d. variants: the STFT precision and interior kernels
    (`csrc/stft_variants.cu`) through their entry points: K1's
    `precision="default"` (TF32), the folded STFT at HIGHEST, DEFAULT and
@@ -64,8 +81,10 @@ the script exits non-zero:
    hop 100 on 200,000 and 4,000,000 samples, a (16, 2^20) batch and
    ragged lengths (K1's also at 256/64 and 128/16): p99.9 of the gap
    within 1e-4 and the largest error against a float64 oracle within
-   max(2e-3, 1.5 x the plain version's), the passthrough bit-equal
-   (log10 values; power through log10; c over its frame's sum |x w|).
+   max(2e-3, 1.5 x the plain version's) (log10 values; power through
+   log10; c over its frame's sum |x w|); the passthrough bit-equal at
+   every `PASSTHROUGH_GEOMETRIES` entry (ragged and unaligned rows, ratio
+   1 to 3, lanes == hop and scalar stores).
    `spectrogram_windows(precision="default")` of a (16, 2^20) waveform
    must launch the TF32 kernel and not K1's, and each entry point, run
    at (16, 2^20) (K4: 4,000,000 samples) with the counts at 0, must
@@ -76,8 +95,10 @@ the script exits non-zero:
    tensor-core kernels also the design floor, the direct DFT's FLOP at
    the peak of its pipe (FP64 tensor cores; TF32; bf16 with its three
    passes), and the kernel's share of it; for the passthrough and the
-   shifted add also their device time alone (torch.profiler, "Self
-   CUDA" of their kernels), without the host path an event window holds;
+   shifted add also their device time alone (CUDA events around a CUDA
+   graph of 20 calls), without the host path an event window holds,
+   L2-warm and cold (a 128 MB fill before each call, the fills' own time
+   subtracted) and their share of the bytes bound;
 4e. layouts: the STFT layout kernels (`csrc/stft_layout.cu`) through
    their entry points at the scripts' default blocks: K6 raw-read
    (`experiments.stft_rawread.rawread`, every frame), K7 narrow-out
@@ -121,6 +142,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -156,6 +178,17 @@ VARIANT_P999 = 1e-4  # kernel against plain, benchmarks/stft_outslice_tpu.py:150
 VARIANT_MAIN = BIG         # the variants' main-path input ...
 VARIANT_1D = 4_000_000     # ... and K4's, a 1-D waveform
 VARIANT_ACCURACY = 200_000
+#: K4 passthrough geometries held bit-equal to the plain version (4d):
+#: (B, T, hop, ratio, lanes, rows); the kernel's tiles are 64 rows
+PASSTHROUGH_GEOMETRIES = [
+    (1, 4_000_000, 100, 2, 128, 40_192),  # the path: rows_padded(4M, 256)
+    (1, 30_099, 100, 2, 128, 512),        # ragged T
+    (3, 12_345, 100, 2, 128, 125),        # T % 4 = 1: rows 1, 2 unaligned
+    (2, 50_002, 100, 1, 128, 500),        # ratio 1, T % 4 = 2
+    (1, 60_000, 100, 3, 128, 599),        # ratio 3
+    (2, 9_999, 100, 2, 100, 101),         # lanes == hop
+    (3, 20_001, 30, 3, 33, 700),          # scalar stores: lanes % 4 = 1
+]
 #: (name, TPU kernel replaced, format, epilogue, padded layout); format
 #: None is K4's passthrough
 VARIANTS = [
@@ -637,27 +670,34 @@ def _files(path: str) -> set:
     return {f for f in os.listdir(path) if not f.startswith("ExpConfig")}
 
 
-def run_five_stages(root: str, universal: dict, card: str, name: str):
+def run_five_stages(root: str, universal: dict, card: str, name: str,
+                    extra=None):
     """AEC train, AEC predict, GMM fit, DEC train (init=load) and DEC
     predict, each through the port's `cli.run_dc` with the card as the
-    default device; checks every stage's artifact names. Returns the DEC
-    predict directory, the stage walls and the `load_data` read seconds."""
+    default device and the `extra` ini keys; checks every stage's artifact
+    names. Returns the DEC predict directory, the stage walls, the
+    `load_data` read seconds and each stage's peak device memory above
+    what was allocated when it started."""
     from spectrogram_cube_clustering_tpu_torch import cli
     from spectrogram_cube_clustering_tpu_torch.utils import config_training
 
-    walls, reads = {}, {}
+    walls, reads, peaks = {}, {}, {}
 
     def run(stage, params, hp=None):
         ini = config_training(
             {"savepath": f"{root}/Outputs", "configpath": f"{root}/Config",
              "transform": "sample_norm_cent", **universal},
-            {"tb": "False", "show": "False", "figures": "False", **params},
+            {"tb": "False", "show": "False", "figures": "False", **params,
+             **(extra or {})},
             hp)
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()  # earlier phases' tensors
         t0 = time.perf_counter()
         cfg = cli.run_dc(init_path=ini)
         torch.cuda.synchronize()
         walls[stage] = time.perf_counter() - t0
+        peaks[stage] = torch.cuda.max_memory_allocated() - base
         check(cfg.device.type == "cuda", f"{name} {stage} ran on {cfg.device}")
         if hasattr(cfg, "load_seconds"):
             reads[stage] = cfg.load_seconds
@@ -688,18 +728,23 @@ def run_five_stages(root: str, universal: dict, card: str, name: str):
              "aec_predict": os.path.join(aec, "Prediction"),
              "gmm_fit": os.path.join(aec, "GMM", "n_clusters=5"),
              "dec_train": dec, "dec_predict": os.path.join(dec, "Prediction")}
+    want = dict(STAGE_FILES)
+    if (extra or {}).get("loadmode") == "stream":
+        want["aec_tmp"] = {"SNAPSHOT"}  # the stream loop keeps no best epoch
     for stage, path in trees.items():
         # later stages write into the run dirs of earlier ones
         later = {"GMM", "Prediction"} if stage == "aec_train" else {
             "Prediction"}
         got = _files(path) - later
-        check(got == STAGE_FILES[stage],
-              f"{name} {stage} artifacts {sorted(got)}")
+        check(got == want[stage], f"{name} {stage} artifacts {sorted(got)}")
     walls_s = {k: round(v, 3) for k, v in walls.items()}
     reads_s = {k: round(v, 4) for k, v in reads.items()}
     print(f"workflow {name} on {card}: stage walls {walls_s} s; load_data "
-          f"read (source read + copy to the card) {reads_s} s", flush=True)
-    return trees["dec_predict"], walls, reads
+          f"read (source read + copy to the card) {reads_s} s; peak device "
+          f"memory above the stage's start (torch.cuda."
+          f"max_memory_allocated) {peaks} bytes",
+          flush=True)
+    return trees["dec_predict"], walls, reads, peaks
 
 
 def check_dec_predict(pred: str, truth: np.ndarray, name: str) -> float:
@@ -727,76 +772,268 @@ def check_dec_predict(pred: str, truth: np.ndarray, name: str) -> float:
     return score
 
 
-def phase_workflow(device, gen, card, cuda_stft,
-                   spectrogram_plain) -> tuple:
+def phase_workflow(device, gen, card, cuda_stft, spectrogram_plain,
+                   tmp: str) -> tuple:
     """The 5-stage CLI workflow through the port's `run_dc`, from a Zarr
     cube written by the port's `build_cube` (source A) and from the raw
-    waveform (source B). Returns the STFT launches of both and the largest
-    gap of the written cube from the plain STFT of its waveform."""
-    import tempfile
-
+    waveform (source B), both left in `tmp` for the stream phase. Returns
+    the STFT launches of both, the largest gap of the written cube from the
+    plain STFT of its waveform, and each source's ini keys and planted
+    kinds."""
     from spectrogram_cube_clustering_tpu_torch import cli
     from spectrogram_cube_clustering_tpu_torch.data import zarrlite
 
     launches = 0
-    with tempfile.TemporaryDirectory() as tmp:
-        # source A: the cube of a CUBE_WAVE waveform
-        c, t = CUBE_WAVE
-        kinds = torch.randint(0, 5, (c, -(-t // 400)), generator=gen,
-                              device=device)
-        wave = synthetic_waveform(CUBE_WAVE, gen, device, kinds=kinds,
-                                  amplitude=10.0)
-        np.save(f"{tmp}/cube_wave.npy", wave.cpu().numpy())
-        cuda_stft.LAUNCHES = 0  # build_cube's run starts here
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        cube = cli.build_cube([f"{tmp}/cube_wave.npy", f"{tmp}/cube.zarr"])
-        build_s = time.perf_counter() - t0
-        build_launches = cuda_stft.LAUNCHES  # ... and ends here
-        print(f"workflow zarr: build_cube {build_s:.3f} s on {card} "
-              f"(STFT kernel launches {build_launches})", flush=True)
-        check(build_launches >= 1, "STFT kernel in build_cube")
-        launches += build_launches
-        # the cube as written, every tile and frame of this shape, against
-        # the plain STFT of the same waveform in (frames, channels, freq)
-        written = torch.from_numpy(zarrlite.open_group(cube)["cube"][:])
-        want = spectrogram_plain(wave).transpose(0, 1).cpu()
-        check(written.shape == want.shape, f"cube {tuple(written.shape)}")
-        check(bool(torch.isfinite(written).all()), "finite cube")
-        cube_err = float((written - want).abs().max())
-        print(f"workflow zarr: cube {tuple(written.shape)} vs plain STFT "
-              f"max_abs_err {cube_err:.3e}", flush=True)
-        check(cube_err <= STFT_ATOL, f"build_cube cube err {cube_err}")
-        del wave, written, want
-        pred, _, _ = run_five_stages(
-            f"{tmp}/A", {"fname_dataset": cube, "chunk_size": 5758,
-                         "channel_start": 0, "channel_stride": 1,
-                         "window_rows": 4}, card, "zarr")
+    sources = {}
+    # source A: the cube of a CUBE_WAVE waveform
+    c, t = CUBE_WAVE
+    kinds = torch.randint(0, 5, (c, -(-t // 400)), generator=gen,
+                          device=device)
+    wave = synthetic_waveform(CUBE_WAVE, gen, device, kinds=kinds,
+                              amplitude=10.0)
+    np.save(f"{tmp}/cube_wave.npy", wave.cpu().numpy())
+    cuda_stft.LAUNCHES = 0  # build_cube's run starts here
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cube = cli.build_cube([f"{tmp}/cube_wave.npy", f"{tmp}/cube.zarr"])
+    build_s = time.perf_counter() - t0
+    build_launches = cuda_stft.LAUNCHES  # ... and ends here
+    print(f"workflow zarr: build_cube {build_s:.3f} s on {card} "
+          f"(STFT kernel launches {build_launches})", flush=True)
+    check(build_launches >= 1, "STFT kernel in build_cube")
+    launches += build_launches
+    # the cube as written, every tile and frame of this shape, against
+    # the plain STFT of the same waveform in (frames, channels, freq)
+    written = torch.from_numpy(zarrlite.open_group(cube)["cube"][:])
+    want = spectrogram_plain(wave).transpose(0, 1).cpu()
+    check(written.shape == want.shape, f"cube {tuple(written.shape)}")
+    check(bool(torch.isfinite(written).all()), "finite cube")
+    cube_err = float((written - want).abs().max())
+    print(f"workflow zarr: cube {tuple(written.shape)} vs plain STFT "
+          f"max_abs_err {cube_err:.3e}", flush=True)
+    check(cube_err <= STFT_ATOL, f"build_cube cube err {cube_err}")
+    del wave, written, want
+    sources["zarr"] = (
+        {"fname_dataset": cube, "chunk_size": 5758, "channel_start": 0,
+         "channel_stride": 1, "window_rows": 4},
         # item i is channel i, rows 0..5755: window w holds kind [i, w]
-        check_dec_predict(pred, kinds[:, :1439].reshape(-1).cpu().numpy(),
-                          "zarr")
+        kinds[:, :1439].reshape(-1).cpu().numpy())
+    pred = run_five_stages(f"{tmp}/A", sources["zarr"][0], card,
+                           "zarr")[0]
+    check_dec_predict(pred, sources["zarr"][1], "zarr")
 
-        # source B: the raw (16, 2^20) waveform
-        c, t = BIG
-        kinds = torch.randint(0, 5, (c, -(-t // 400)), generator=gen,
-                              device=device)
-        wave = synthetic_waveform(BIG, gen, device, kinds=kinds,
-                                  amplitude=10.0)
-        np.save(f"{tmp}/wave.npy", wave.cpu().numpy())
-        del wave
-        per_channel = ((t - 200) // 100 + 1) // 4
-        cuda_stft.LAUNCHES = 0  # the waveform stages' run starts here
-        pred, _, _ = run_five_stages(
-            f"{tmp}/B", {"fname_dataset": f"{tmp}/wave.npy",
-                         "datafiletype": "waveform"}, card, "waveform")
-        wave_launches = cuda_stft.LAUNCHES  # ... and ends here
-        print(f"workflow waveform: STFT kernel launches {wave_launches}",
+    # source B: the raw (16, 2^20) waveform
+    c, t = BIG
+    kinds = torch.randint(0, 5, (c, -(-t // 400)), generator=gen,
+                          device=device)
+    wave = synthetic_waveform(BIG, gen, device, kinds=kinds,
+                              amplitude=10.0)
+    np.save(f"{tmp}/wave.npy", wave.cpu().numpy())
+    del wave
+    per_channel = ((t - 200) // 100 + 1) // 4
+    sources["waveform"] = (
+        {"fname_dataset": f"{tmp}/wave.npy", "datafiletype": "waveform"},
+        kinds[:, :per_channel].reshape(-1).cpu().numpy())
+    cuda_stft.LAUNCHES = 0  # the waveform stages' run starts here
+    pred = run_five_stages(f"{tmp}/B", sources["waveform"][0], card,
+                           "waveform")[0]
+    wave_launches = cuda_stft.LAUNCHES  # ... and ends here
+    print(f"workflow waveform: STFT kernel launches {wave_launches}",
+          flush=True)
+    check(wave_launches >= 4, "STFT kernel in the waveform stages")
+    launches += wave_launches
+    check_dec_predict(pred, sources["waveform"][1], "waveform")
+    return launches, cube_err, sources
+
+
+#: 4g: the stream stages' ini keys
+STREAM_KEYS = {"loadmode": "stream", "workers": 4}
+#: 4g: each wire's bounds, the JAX tests': a stream AEC epoch's losses
+#: against the float32 wire's (tests/test_prefetch.py:266-366); a fused
+#: /predict_waveform answer's q (atol) and labels against the float32
+#: request's (tests/test_serve.py:185-236, 526-573), for the model those
+#: tests serve, a DEC with seeded random weights: labels equal for the
+#: half-width floats (where the float32 q's top-two gap exceeds twice the
+#: q bound, so that q within its bound cannot swap them), agreeing on 95%
+#: of the windows for int8
+STREAM_WIRES = {"bfloat16": 0.02, "int8": 0.03}
+SERVE_WIRES = {"bfloat16": (5e-3, None), "float16": (5e-3, None),
+               "int8": (3e-2, 0.95)}
+#: 4g: the trained DEC's served q on the card against the same model on
+#: the CPU over the same wire: both restore the same encoded samples, so
+#: they differ by K1's and the model's float rounding (the wire itself
+#: moves this model's q by up to 6.4e-2)
+TRAINED_Q_ATOL = 1e-3
+
+
+def wire_gate(got: dict, want: dict, q_atol: float, agree) -> tuple:
+    """(q's largest gap, its 99.9th percentile, the share of labels
+    agreeing, whether the labels pass): half-width floats (`agree` None)
+    must give float32's label wherever float32's top-two gap of q exceeds
+    2 * q_atol (and such windows must exist); int8 at least `agree` of all
+    labels."""
+    err = np.abs(got["q"] - want["q"])
+    top2 = np.sort(want["q"], axis=1)[:, -2:]
+    if agree is None:
+        clear = top2[:, 1] - top2[:, 0] > 2 * q_atol
+        same = float(np.mean(got["labels"][clear] == want["labels"][clear])
+                     ) if clear.any() else 0.0
+        ok = same == 1.0
+    else:
+        same = float(np.mean(got["labels"] == want["labels"]))
+        ok = same >= agree
+    return float(err.max()), float(np.quantile(err, 0.999)), same, ok
+
+
+def loader_rate(device, universal: dict, wire=None) -> float:
+    """Windows per second one pass of the stream loader delivers to the
+    card: the source's normalized items in batches of 64, 4 workers."""
+    from types import SimpleNamespace
+
+    from spectrogram_cube_clustering_tpu_torch.workflow.train import (
+        _stream_dataset,
+        _stream_loader_factory,
+    )
+
+    cfg = SimpleNamespace(transform="sample_norm_cent", device=device,
+                          stream_transfer_dtype=wire, **STREAM_KEYS,
+                          **universal)
+    make_loader = _stream_loader_factory(cfg, _stream_dataset(cfg), 64)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = sum(n_valid for _, n_valid in make_loader())
+    torch.cuda.synchronize()
+    return n / (time.perf_counter() - t0)
+
+
+def stream_epoch(root: str, universal: dict, wire) -> list:
+    """One AEC stream epoch through `cli.run_dc` with `wire` as
+    `stream_transfer_dtype`, from the ini's seeded weights; returns
+    [train, validation] loss."""
+    from spectrogram_cube_clustering_tpu_torch import cli
+    from spectrogram_cube_clustering_tpu_torch.utils import config_training
+
+    params = {"model": "AEC", "mode": "train", "n_epochs": 1,
+              "early_stopping": "False", "tb": "False", "show": "False",
+              "figures": "False", **STREAM_KEYS}
+    if wire is not None:
+        params["stream_transfer_dtype"] = wire
+    cfg = cli.run_dc(init_path=config_training(
+        {"savepath": f"{root}/Outputs", "configpath": f"{root}/Config",
+         "transform": "sample_norm_cent", **universal},
+        params, {"batch_size": "64", "lr": "0.001"}))
+    [run] = [d for d in os.listdir(cfg.savepath_exp) if d.startswith("Run_")]
+    with open(os.path.join(cfg.savepath_exp, run, "AEC_history.csv")) as f:
+        [row] = list(csv.DictReader(f))
+    return [float(row["Training MSE"]), float(row["Validation MSE"])]
+
+
+def phase_stream(device, card, cuda_stft, tmp: str, sources: dict) -> None:
+    """4g: the five stages with `loadmode = stream` from 4c's sources (its
+    build_cube cube and its waveform, not built again), one AEC stream
+    epoch per wire against the float32 wire, and one /predict_waveform
+    request per wire against the float32 one, served by the stream run's
+    trained DEC of the waveform source."""
+    from spectrogram_cube_clustering_tpu_torch import models, serve, serve_http
+
+    preds = {}
+    cuda_stft.LAUNCHES = 0  # the stream stages' run starts here
+    for name, (universal, truth) in sources.items():
+        rate = loader_rate(device, universal)
+        preds[name], walls, _, peaks = run_five_stages(
+            f"{tmp}/stream_{name}", universal, card, f"stream {name}",
+            STREAM_KEYS)
+        check_dec_predict(preds[name], truth, f"stream {name}")
+        print(f"stream {name} on {card}: stage walls "
+              f"{ {k: round(v, 3) for k, v in walls.items()} } s; loader "
+              f"{rate:.1f} windows/s to the card; peak device memory "
+              f"{ {k: round(v / 2**20, 1) for k, v in peaks.items()} } MiB",
               flush=True)
-        check(wave_launches >= 4, "STFT kernel in the waveform stages")
-        launches += wave_launches
-        check_dec_predict(pred, kinds[:, :per_channel].reshape(-1).cpu()
-                          .numpy(), "waveform")
-    return launches, cube_err
+    launches = cuda_stft.LAUNCHES  # ... and ends here
+    print(f"stream stages: STFT kernel launches {launches} (their Zarr "
+          f"cube is 4c's, written by the kernel; the waveform items are "
+          f"host STFTs, as the JAX package's)", flush=True)
+
+    universal = sources["zarr"][0]
+    base = stream_epoch(f"{tmp}/wire_float32", universal, None)
+    print(f"stream wire float32 on {card}: AEC epoch [train, val] {base}; "
+          f"loader {loader_rate(device, universal):.1f} windows/s",
+          flush=True)
+    for wire, rtol in STREAM_WIRES.items():
+        got = stream_epoch(f"{tmp}/wire_{wire}", universal, wire)
+        rel = max(abs(g - b) / b for g, b in zip(got, base))
+        print(f"stream wire {wire} on {card}: AEC epoch [train, val] {got}, "
+              f"largest relative gap to float32 {rel:.3e} (bound {rtol}); "
+              f"loader {loader_rate(device, universal, wire):.1f} "
+              f"windows/s", flush=True)
+        check(rel <= rtol, f"stream wire {wire} loss gap {rel}")
+
+    # one request per wire to a server of the stream run's trained DEC of
+    # the waveform source, 400,000 samples of that waveform, and the same
+    # request to that DEC on the CPU over the same wire; and in process to
+    # a DEC with seeded random weights, the model the JAX serve tests hold
+    # to their bounds
+    weights = os.path.join(os.path.dirname(preds["waveform"]),
+                           "DEC_Params_Final.pt")
+    seeded = models.DEC(5, generator=torch.Generator().manual_seed(0))
+    wave = np.load(sources["waveform"][0]["fname_dataset"],
+                   mmap_mode="r")[0, :400_000].copy()
+    answers, cpu_answers, seeded_answers = {}, {}, {}
+    for wire in (None, *SERVE_WIRES):
+        predictor = serve.DECPredictor.from_checkpoint(
+            weights, 5, max_batch=1024, buckets=True, device=device,
+            transfer_dtype=wire)
+        frontend = serve.WaveformFrontend(predictor)
+        frontend.warmup()
+        server = serve_http.make_server(predictor, host="127.0.0.1", port=0,
+                                        waveform_frontend=frontend)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        host, port = server.server_address[:2]
+        try:
+            status, answers[wire], secs = post(
+                f"http://{host}:{port}/predict_waveform", wave)
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+        check(not thread.is_alive(), f"{wire} server thread stopped")
+        check(status == 200, f"{wire} /predict_waveform status {status}")
+        print(f"serve wire {wire or 'float32'} on {card}: /predict_waveform "
+              f"{len(wave)} samples in {secs * 1e3:.2f} ms", flush=True)
+        cpu_answers[wire] = serve.WaveformFrontend(
+            serve.DECPredictor.from_checkpoint(
+                weights, 5, max_batch=1024, buckets=True, device="cpu",
+                transfer_dtype=wire))(wave)
+        q_max, q_999, same, ok = wire_gate(answers[wire], cpu_answers[wire],
+                                           TRAINED_Q_ATOL, None)
+        print(f"serve wire {wire or 'float32'} on {card}, trained DEC over "
+              f"HTTP against the CPU over the same wire: q max_abs_err "
+              f"{q_max:.3e} (bound {TRAINED_Q_ATOL}), p99.9 {q_999:.3e}; "
+              f"labels equal where clear {same:.4f}", flush=True)
+        check(q_max <= TRAINED_Q_ATOL and ok,
+              f"{wire} trained DEC served on the card vs the CPU")
+        seeded_answers[wire] = serve.WaveformFrontend(serve.DECPredictor(
+            seeded.state_dict(), 5, max_batch=1024, buckets=True,
+            device=device, transfer_dtype=wire))(wave)
+    for wire, (q_atol, agree) in SERVE_WIRES.items():
+        q_max, q_999, same, ok = wire_gate(
+            seeded_answers[wire], seeded_answers[None], q_atol, agree)
+        print(f"serve wire {wire} on {card}, seeded DEC: q max_abs_err "
+              f"{q_max:.3e} (bound {q_atol}), p99.9 {q_999:.3e}; labels "
+              f"agreeing {same:.4f}", flush=True)
+        check(q_max <= q_atol and ok, f"{wire} seeded DEC serve answer")
+        q_max, q_999, same, ok = wire_gate(answers[wire], answers[None],
+                                           q_atol, agree)
+        cpu_gap = float(np.abs(cpu_answers[wire]["q"]
+                               - cpu_answers[None]["q"]).max())
+        z_err = float(np.abs(answers[wire]["z"] - answers[None]["z"]).max())
+        print(f"serve wire {wire} on {card}, trained DEC over HTTP against "
+              f"its float32 answer: q max_abs_err {q_max:.3e} (the CPU's: "
+              f"{cpu_gap:.3e}), p99.9 {q_999:.3e}; z max_abs_err "
+              f"{z_err:.3e}; labels agreeing {same:.4f} over "
+              f"{len(answers[None]['q'])} windows", flush=True)
+        check(ok, f"{wire} trained DEC serve labels")
 
 
 def p999(err: torch.Tensor) -> float:
@@ -845,28 +1082,50 @@ def direct_dft_ms(frames, epilogue, nperseg=200, fmt="f32"):
     return 2 * frames * nperseg * cols * passes / peak * 1e3
 
 
-def device_ms(fn, reps: int = 20):
-    """Device time alone of fn() (torch.profiler's "Self CUDA" of the
-    kernels it launches, per call, after a warm-up) and those kernels'
-    names; 0.0 where the profiler shows no device time."""
-    from torch.profiler import ProfilerActivity, profile
+def graph_ms(fn, reps: int = 20, flush=None) -> float:
+    """Device time alone of one fn() call: CUDA events around the replay of
+    a CUDA graph of `reps` calls, so no host launch gap sits between the
+    kernels (median of 5 replays, after a warm-up). With `flush`, a
+    (>= 100 MB) tensor is filled before every call, so fn() finds its
+    inputs out of L2 (cold), and a graph of the fills alone is subtracted.
+    """
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    def graph(body):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                body()
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(reps):
+                body()
+        return g
+
+    def replay_ms(g) -> float:
+        g.replay()
         torch.cuda.synchronize()
-    total, names = 0.0, []
-    for evt in prof.key_averages():
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = evt.self_cuda_time_total
-        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
-            total += us
-            names.append(evt.key[:60])
-    return total / reps / 1e3, names
+        times = []
+        for _ in range(5):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            g.replay()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return float(np.median(times))
+
+    if flush is None:
+        return replay_ms(graph(fn)) / reps
+
+    def flushed():
+        flush.fill_(1.0)
+        fn()
+
+    return (replay_ms(graph(flushed))
+            - replay_ms(graph(lambda: flush.fill_(1.0)))) / reps
 
 
 def variant_values(got, epilogue, scale):
@@ -904,10 +1163,6 @@ def phase_variants(device, gen, card, cuda_stft, spectrogram_windows):
     def kernel(name, fmt, epilogue, padded, x, nperseg=200, hop=100):
         """(kernel output, plain output) of a variant on the same x."""
         t = x.shape[-1]
-        if fmt is None:
-            rows = stft_isolate.rows_padded(t, 256)
-            return (stv.passthrough_cuda(x, hop, nperseg // hop, rows, lanes),
-                    stv.passthrough_plain(x, hop, nperseg // hop, rows, lanes))
         kw, chunks = spec(name, fmt, epilogue, padded, t, nperseg, hop)
         if name == "stft_tf32":  # through K1's entry point
             got = cuda_stft.spectrogram(x, nperseg, hop, precision="default")
@@ -921,10 +1176,23 @@ def phase_variants(device, gen, card, cuda_stft, spectrogram_windows):
               (1, 30_099), (3, 4_567), (2, 12_345)]
     worst = {}
     for name, _, fmt, epilogue, padded in VARIANTS:
+        worst[name] = 0.0
+        if fmt is None:
+            for b, t, hop, ratio, lanes_g, rows in PASSTHROUGH_GEOMETRIES:
+                x = torch.randn((b, t), generator=gen, device=device)
+                got = stv.passthrough_cuda(x, hop, ratio, rows, lanes_g)
+                torch.cuda.synchronize()
+                want = stv.passthrough_plain(x, hop, ratio, rows, lanes_g)
+                same = torch.equal(got, want)
+                print(f"variant {name} B={b} T={t} hop={hop} ratio={ratio} "
+                      f"lanes={lanes_g} rows={rows}: bit-equal {same}",
+                      flush=True)
+                check(same, f"{name} {(b, t, hop, ratio, lanes_g, rows)} "
+                      f"bit-equal")
+            continue
         geoms = [(200, 100, s) for s in shapes]
         if name == "stft_tf32":
             geoms += [(256, 64, (2, 100_000)), (128, 16, (1, 50_000))]
-        worst[name] = 0.0
         for nperseg, hop, shape in geoms:
             x = torch.randn(shape, generator=gen, device=device)
             got, want = kernel(name, fmt, epilogue, padded, x, nperseg, hop)
@@ -932,11 +1200,6 @@ def phase_variants(device, gen, card, cuda_stft, spectrogram_windows):
             check(got.shape == want.shape,
                   f"{name} shape {tuple(got.shape)} vs {tuple(want.shape)}")
             check(bool(torch.isfinite(got).all()), f"{name} finite")
-            if fmt is None:
-                print(f"variant {name} {shape}: bit-equal "
-                      f"{torch.equal(got, want)}", flush=True)
-                check(torch.equal(got, want), f"{name} {shape} bit-equal")
-                continue
             kw = spec(name, fmt, epilogue, padded, shape[-1])[0]
             ref, scale = variant_oracle(x, nperseg, hop, epilogue,
                                         kw.get("rows"), kw.get("lanes"))
@@ -1037,14 +1300,36 @@ def phase_variants(device, gen, card, cuda_stft, spectrogram_windows):
             library_ms = cuda_ms(lambda: xp[:, :-1] + xp[:, 1:])
             flop, out_elems = b * rows * 100, b * rows * lanes
             # the event windows hold the ctypes wrapper's host path: the
-            # device time alone of each kernel
-            pass_dev, pass_names = device_ms(
-                lambda: stv.passthrough_cuda(x, 100, 2, rows, lanes))
-            add_dev, add_names = device_ms(lambda: xp[:, :-1] + xp[:, 1:])
-            print(f"variant {name} device time alone on {card}: kernel "
-                  f"{pass_dev:.4f} ms {pass_names}, shifted add "
-                  f"{add_dev:.4f} ms {add_names} (0: not measured)",
-                  flush=True)
+            # device time alone of each kernel (graph_ms), L2-warm (20
+            # calls over the same 36 MB) and cold (a 128 MB fill before
+            # every call), in turns kernel, add, add, kernel
+            l2 = torch.empty(32 << 20, device=device)
+            dev = {("kernel", "warm"): [], ("add", "warm"): [],
+                   ("kernel", "cold"): [], ("add", "cold"): []}
+            fns = {"kernel": lambda: stv.passthrough_cuda(x, 100, 2, rows,
+                                                          lanes),
+                   "add": lambda: xp[:, :-1] + xp[:, 1:]}
+            for who in ("kernel", "add", "add", "kernel"):
+                for temp, flush in (("warm", None), ("cold", l2)):
+                    ms_ = graph_ms(fns[who], flush=flush)
+                    dev[who, temp].append(ms_)
+                    check(ms_ > 0, f"{name} {who} {temp} device time {ms_}")
+            del l2
+            pass_dev = float(np.median(dev["kernel", "warm"]))
+            add_dev = float(np.median(dev["add", "warm"]))
+            pass_cold = float(np.median(dev["kernel", "cold"]))
+            add_cold = float(np.median(dev["add", "cold"]))
+            pass_bytes_ms = 4 * (b * t + b * rows * lanes) / HBM_BYTES_PER_S \
+                * 1e3
+            print(f"variant {name} device time alone (CUDA graph of 20 "
+                  f"calls) on {card}: kernel warm {dev['kernel', 'warm']} "
+                  f"cold {dev['kernel', 'cold']} ms; shifted add warm "
+                  f"{dev['add', 'warm']} cold {dev['add', 'cold']} ms; "
+                  f"kernel at {pass_bytes_ms / pass_dev:.1%} (warm) / "
+                  f"{pass_bytes_ms / pass_cold:.1%} (cold) of the "
+                  f"{pass_bytes_ms:.4f} ms bytes bound, add at "
+                  f"{pass_bytes_ms / add_dev:.1%} / "
+                  f"{pass_bytes_ms / add_cold:.1%}", flush=True)
         else:
             kw, chunks = spec(name, fmt, epilogue, padded, t)
             ms = cuda_ms(lambda: stv.stft_variant_cuda(x, **kw))
@@ -1093,7 +1378,9 @@ def phase_variants(device, gen, card, cuda_stft, spectrogram_windows):
             "library_ms": library_ms,
         })
         if fmt is None:
-            entries[-1].update(device_ms=pass_dev, library_device_ms=add_dev)
+            entries[-1].update(device_ms=pass_dev, library_device_ms=add_dev,
+                               device_ms_cold=pass_cold,
+                               library_device_ms_cold=add_cold)
     return entries
 
 
@@ -1426,9 +1713,13 @@ def main() -> int:
     # 4b. the training slice
     train_launches = phase_training(device, gen, card, cuda_stft,
                                     spectrogram_plain, args.seed)
-    # 4c. the 5-stage CLI workflow, from a Zarr cube and a raw waveform
-    wf_launches, cube_err = phase_workflow(device, gen, card, cuda_stft,
-                                           spectrogram_plain)
+    with tempfile.TemporaryDirectory() as tmp:
+        # 4c. the 5-stage CLI workflow, from a Zarr cube and a raw waveform
+        wf_launches, cube_err, sources = phase_workflow(
+            device, gen, card, cuda_stft, spectrogram_plain, tmp)
+        # 4g. the same stages with loadmode = stream from 4c's sources, and
+        # the wire dtypes
+        phase_stream(device, card, cuda_stft, tmp, sources)
     max_err = max(max_err, cube_err)
     print(f"STFT kernel launches: serving path {launches}, training path "
           f"{train_launches}, workflow {wf_launches}", flush=True)

@@ -1,4 +1,4 @@
-"""Device choice and numeric policy."""
+"""Device choice, numeric policy and the wire dtypes."""
 
 from spectrogram_cube_clustering_tpu_torch.core.device import (  # noqa: F401
     fp32_policy,
@@ -6,5 +6,12 @@ from spectrogram_cube_clustering_tpu_torch.core.device import (  # noqa: F401
     resolve_device,
     tf32_flags,
 )
+from spectrogram_cube_clustering_tpu_torch.core.precision import (  # noqa: F401
+    dequant_wire,
+    quantize_wire,
+    wire_array,
+    wire_dtype,
+)
 
-__all__ = ["fp32_policy", "fp32_policy_for", "resolve_device", "tf32_flags"]
+__all__ = ["dequant_wire", "fp32_policy", "fp32_policy_for", "quantize_wire",
+           "resolve_device", "tf32_flags", "wire_array", "wire_dtype"]

@@ -1,0 +1,85 @@
+"""Wire dtypes: reduced-width host-to-device transfer (counterpart of the
+wire functions of the JAX package's `core/precision.py`).
+
+The streaming loader (`data.prefetch.PrefetchLoader`), the stream predict
+(`workflow.predict`) and the predictors (`serve.py`) take a
+`transfer_dtype`: a host batch is re-encoded before it crosses to the
+device and restored to float32 there, so the only effect is input
+quantization: ~3 significant digits for bfloat16 (float32's range), ~4
+for float16 (range ±65k), and a uniform 1/127-of-absmax step for int8.
+bfloat16 is `torch.bfloat16` (round to nearest even), with no dependence
+on `ml_dtypes`. The int8 encoding is the JAX package's numpy expression,
+with one scale per sample (axis 0), or one for a whole rank-1 segment.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+WIRE_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
+               "int8": torch.int8}
+
+Wire = Union[torch.Tensor, dict]
+
+
+def wire_dtype(transfer_dtype: Optional[str]) -> Optional[torch.dtype]:
+    """The torch dtype a batch crosses to the device in, or None for full
+    float32."""
+    if transfer_dtype is None:
+        return None
+    if transfer_dtype not in WIRE_DTYPES:
+        raise ValueError(
+            f"transfer_dtype must be None, 'bfloat16', 'float16' or 'int8', "
+            f"got {transfer_dtype!r}")
+    return WIRE_DTYPES[transfer_dtype]
+
+
+def quantize_wire(batch: np.ndarray, wire: Optional[torch.dtype]) -> Wire:
+    """Host-side encoding of a float batch before the copy to the device:
+    a CPU tensor (float wires: a cast, round to nearest even), or for the
+    int8 wire {"q": int8 codes, "scale": float32 (B, 1, ..., 1)} with
+    q = round(x / s), s = max(absmax / 127, tiny) per sample (axis 0 of a
+    batch; a rank-1 segment is one sample)."""
+    return quantize_tensor(
+        torch.from_numpy(np.ascontiguousarray(batch, np.float32)), wire)
+
+
+def quantize_tensor(x: torch.Tensor, wire: Optional[torch.dtype]) -> Wire:
+    """`quantize_wire` of a float32 tensor on its own device (the stream
+    predict encodes its reconstructions on the card before they cross to
+    the host): the JAX package's numpy expression in torch, rounding half
+    to even as np.rint does."""
+    if wire is None:
+        return x
+    if wire != torch.int8:
+        return x.to(wire)
+    red = tuple(range(1, x.dim())) if x.dim() > 1 else (0,)
+    absmax = torch.amax(x.abs(), dim=red, keepdim=True)
+    scale = torch.clamp(absmax / 127.0, min=torch.finfo(torch.float32).tiny)
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return {"q": q, "scale": scale}
+
+
+def dequant_wire(x: Wire) -> torch.Tensor:
+    """Inverse of `quantize_wire` on whatever device the encoding lies:
+    int8 codes times their scales, anything else cast to float32."""
+    if isinstance(x, dict):
+        return x["q"].to(torch.float32) * x["scale"]
+    return x.to(torch.float32)
+
+
+def wire_array(x: Wire) -> torch.Tensor:
+    """The bulk tensor of a wire batch (the int8 codes, else the batch)."""
+    return x["q"] if isinstance(x, dict) else x
+
+
+def wire_to(x: Wire, device: torch.device,
+            non_blocking: bool = False) -> Wire:
+    """A wire batch (tensor or int8 dict) moved to `device`."""
+    if isinstance(x, dict):
+        return {k: v.to(device, non_blocking=non_blocking)
+                for k, v in x.items()}
+    return x.to(device, non_blocking=non_blocking)

@@ -120,27 +120,103 @@ __global__ void __launch_bounds__(scc_mma::kThreads, 1)
 // K4's passthrough on the padded row view of the waveform: xp[r, l] =
 // x[r*hop + l] for l < hop and r*hop + l < t, else 0, and
 // out[f, l] = xp[f, l] + xp[f+1, l] + ... (ratio rows), summed in order as
-// the TPU kernel's planes[0] + planes[1] + ... . Bound by bytes.
-__global__ void passthrough_kernel(const float* __restrict__ x,
-                                   float* __restrict__ out, int64_t t,
-                                   int64_t n_rows, int hop, int ratio,
-                                   int lanes, int64_t total) {
-  for (int64_t e = blockIdx.x * int64_t(blockDim.x) + threadIdx.x; e < total;
-       e += int64_t(gridDim.x) * blockDim.x) {
-    const int64_t row = e / lanes;
-    const int l = int(e - row * lanes);
-    const int64_t b = row / n_rows;
-    const int64_t f = row - b * n_rows;
-    const float* xb = x + b * t;
-    float acc = 0.0f;
-    if (l < hop) {
-      for (int j = 0; j < ratio; ++j) {
-        const int64_t i = (f + j) * hop + l;
-        const float v = i < t ? __ldg(xb + i) : 0.0f;
-        acc = j == 0 ? v : __fadd_rn(acc, v);
+// the TPU kernel's planes[0] + planes[1] + ... .
+//
+// Bound by bytes: each input sample read once, each output lane written
+// once (16.0 MB in and 20.6 MB out at 4,000,000 samples, 0.0109 ms at
+// 3.35 TB/s). Design: a 2-D grid, blockIdx.y the batch row (strided past
+// 65,535 rows), blockIdx.x a tile of kTile output rows. The block copies
+// its tile's (kTile + ratio - 1) * hop contiguous samples into shared memory
+// once, 16-byte loads where the tile's first sample is 16-byte aligned and
+// 4-byte loads otherwise, zeros past t; so a sample crosses HBM once, not
+// ratio times. Then one warp per output row writes the row's lanes as
+// float4 stores (kVec4: lanes % 4 == 0; a 128-lane row is one 512-byte
+// store per warp), or as scalars; lanes >= hop get 0. Indices are 32-bit
+// within a batch row, from one 64-bit row base (the launcher refuses a row
+// of 2^31 samples or outputs).
+//
+// kTile: 64 output rows a block; on an H100 at 4,000,000 samples, tiles of
+// 32, 128 and 256 rows were slower (PERF.md).
+constexpr int kTile = 64;
+
+template <bool kVec4>
+__global__ void __launch_bounds__(256)
+    passthrough_kernel(const float* __restrict__ x, float* __restrict__ out,
+                       int batch, int t, int n_rows, int hop, int ratio,
+                       int lanes) {
+  extern __shared__ float stage[];
+  const int f0 = blockIdx.x * kTile;
+  const int nr = min(kTile, n_rows - f0);
+  const int span = (nr + ratio - 1) * hop;
+  const int s0 = f0 * hop;  // fits: the launcher checks the last span
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n_warps = blockDim.x >> 5;
+  const bool plane4 = (hop & 3) == 0;
+  for (int b = blockIdx.y; b < batch; b += gridDim.y) {
+    const float* src = x + int64_t(b) * t + s0;
+    // samples of the span that lie in the waveform
+    const int n_in = max(0, min(span, t - s0));
+    if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+      const int n4 = n_in >> 2;
+      const float4* src4 = reinterpret_cast<const float4*>(src);
+      float4* stage4 = reinterpret_cast<float4*>(stage);
+      for (int i = threadIdx.x; i < n4; i += blockDim.x)
+        stage4[i] = __ldg(src4 + i);
+      for (int i = (n4 << 2) + threadIdx.x; i < span; i += blockDim.x)
+        stage[i] = i < n_in ? __ldg(src + i) : 0.0f;
+    } else {
+      for (int i = threadIdx.x; i < span; i += blockDim.x)
+        stage[i] = i < n_in ? __ldg(src + i) : 0.0f;
+    }
+    __syncthreads();
+    float* dst = out + (int64_t(b) * n_rows + f0) * lanes;
+    for (int r = warp; r < nr; r += n_warps) {
+      const float* row = stage + r * hop;
+      float* orow = dst + r * lanes;
+      if (kVec4) {
+        for (int l0 = lane * 4; l0 < lanes; l0 += 128) {
+          float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          if (plane4 && l0 + 4 <= hop) {
+            // the planes' rows are 16-byte aligned in the stage
+            v = *reinterpret_cast<const float4*>(row + l0);
+            for (int j = 1; j < ratio; ++j) {
+              const float4 w =
+                  *reinterpret_cast<const float4*>(row + j * hop + l0);
+              v.x = __fadd_rn(v.x, w.x);
+              v.y = __fadd_rn(v.y, w.y);
+              v.z = __fadd_rn(v.z, w.z);
+              v.w = __fadd_rn(v.w, w.w);
+            }
+          } else {
+            float e[4];
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              const int l = l0 + k;
+              float acc = 0.0f;
+              if (l < hop) {
+                acc = row[l];
+                for (int j = 1; j < ratio; ++j)
+                  acc = __fadd_rn(acc, row[j * hop + l]);
+              }
+              e[k] = acc;
+            }
+            v = make_float4(e[0], e[1], e[2], e[3]);
+          }
+          *reinterpret_cast<float4*>(orow + l0) = v;
+        }
+      } else {
+        for (int l = lane; l < lanes; l += 32) {
+          float acc = 0.0f;
+          if (l < hop) {
+            acc = row[l];
+            for (int j = 1; j < ratio; ++j)
+              acc = __fadd_rn(acc, row[j * hop + l]);
+          }
+          orow[l] = acc;
+        }
       }
     }
-    out[e] = acc;
+    __syncthreads();  // the stage is refilled for the next batch row
   }
 }
 
@@ -238,18 +314,28 @@ extern "C" int scc_stftv_f32_launch(const float* x, const float* cosb,
 }
 
 extern "C" int scc_stftv_passthrough_launch(const float* x, float* out,
-                                            int64_t batch, int64_t t,
-                                            int64_t n_rows, int hop,
-                                            int ratio, int lanes,
+                                            int batch, int t, int n_rows,
+                                            int hop, int ratio, int lanes,
                                             void* stream) {
-  if (batch < 1 || n_rows < 1 || hop < 1 || ratio < 1 || lanes < 1)
+  // every index within a batch row must fit in 32 bits: the samples, the
+  // row's outputs and the staged span of its last tile (t = 0 stages zeros)
+  if (batch < 1 || t < 0 || n_rows < 1 || hop < 1 || ratio < 1 ||
+      lanes < hop || int64_t(n_rows) * lanes > INT32_MAX ||
+      (int64_t(n_rows) + ratio - 1) * hop > INT32_MAX)
     return int(cudaErrorInvalidValue);
-  const int64_t total = batch * n_rows * lanes;
-  const int threads = 256;
-  const int64_t want = (total + threads - 1) / threads;
-  const int64_t blocks = want < 132 * 32 ? want : 132 * 32;  // grid-stride
-  passthrough_kernel<<<unsigned(blocks), threads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      x, out, t, n_rows, hop, ratio, lanes, total);
+  const int64_t smem = (int64_t(kTile) + ratio - 1) * hop * int64_t(sizeof(float));
+  if (smem > 227 * 1024) return int(cudaErrorInvalidValue);
+  const bool vec4 = lanes % 4 == 0 &&
+                    (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  auto kernel = vec4 ? passthrough_kernel<true> : passthrough_kernel<false>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (e != cudaSuccess) return int(e);
+  }
+  const dim3 grid(unsigned((n_rows + kTile - 1) / kTile),
+                  unsigned(batch < 65535 ? batch : 65535));
+  kernel<<<grid, 256, size_t(smem), static_cast<cudaStream_t>(stream)>>>(
+      x, out, batch, t, n_rows, hop, ratio, lanes);
   return int(cudaGetLastError());
 }

@@ -1,11 +1,25 @@
 """Data sources: the Zarr v2 reader and writer (with the blosc1 codec),
-the spectrogram-cube window dataset and the seeded train/validation
-split."""
+the spectrogram-cube window dataset, the seeded train/validation split,
+synthetic windows and cubes with planted classes, and the streaming tier
+(the raw-waveform item source and the prefetch loader)."""
 
 from spectrogram_cube_clustering_tpu_torch.data.cube import (  # noqa: F401
     CubeSpec,
     ZarrCubeDataset,
+    make_synthetic_cube,
     train_val_split,
 )
+from spectrogram_cube_clustering_tpu_torch.data.prefetch import (  # noqa: F401
+    PrefetchLoader,
+    zarr_prefetch_loader,
+)
+from spectrogram_cube_clustering_tpu_torch.data.synthetic import (  # noqa: F401
+    synthetic_windows,
+)
+from spectrogram_cube_clustering_tpu_torch.data.waveform import (  # noqa: F401
+    WaveformStreamDataset,
+)
 
-__all__ = ["CubeSpec", "ZarrCubeDataset", "train_val_split"]
+__all__ = ["CubeSpec", "PrefetchLoader", "WaveformStreamDataset",
+           "ZarrCubeDataset", "make_synthetic_cube", "synthetic_windows",
+           "train_val_split", "zarr_prefetch_loader"]

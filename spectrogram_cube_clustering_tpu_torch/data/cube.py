@@ -1,9 +1,10 @@
 """Spectrogram-cube dataset: Zarr cube -> 4-row windows, and the seeded
 train/validation split.
 
-Copies of the JAX package's `data/cube.py` `CubeSpec`, `ZarrCubeDataset`
-and `train_val_split` (numpy only, but not importable without jax through
-that package's `__init__`); tests pin each copy to its original. Window
+Copies of the JAX package's `data/cube.py` `CubeSpec`, `ZarrCubeDataset`,
+`train_val_split` and `make_synthetic_cube` (numpy only, but not
+importable without jax through that package's `__init__`); tests pin each
+copy to its original. Window
 math of the reference (Cluster/ZarrDataLoader.py:42-85):
 
 - the cube is (time, channel, freq); only the first 2/11 of the time axis
@@ -166,3 +167,45 @@ def train_val_split(
             "is too small for a train/val split"
         )
     return perm[:n_train], perm[n_train:]
+
+
+def make_synthetic_cube(
+    path: str,
+    n_time: int = 5758 * 11 // 2,   # one chunk of usable time
+    n_channels: int = 1610,
+    n_freq: int = 101,
+    n_classes: int = 5,
+    chunk_rows: int = 5758,
+    seed: int = 0,
+    spec: CubeSpec = CubeSpec(),
+) -> np.ndarray:
+    """Write a small synthetic Zarr cube with planted per-window classes.
+
+    Returns the ground-truth labels of the windows that `ZarrCubeDataset`
+    will extract (in extraction order), enabling end-to-end NMI checks.
+    """
+    from spectrogram_cube_clustering_tpu_torch.data.synthetic import (
+        synthetic_windows,
+    )
+
+    rng = np.random.default_rng(seed)
+    cube = rng.normal(0, 0.2, size=(n_time, n_channels, n_freq)).astype(np.float32)
+
+    ds_shape = (n_time, n_channels, n_freq)
+    n_items = spec.num_items(ds_shape)
+    wpi = spec.windows_per_item()
+    labels = np.empty(n_items * wpi, np.int32)
+    for i in range(n_items):
+        start, channel = spec.item_location(i, ds_shape)
+        x, y = synthetic_windows(
+            wpi, n_classes=n_classes, height=spec.window_rows,
+            width=n_freq, noise=0.2, seed=seed + 7 * i + 1,
+        )
+        rows = x[..., 0].reshape(wpi * spec.window_rows, n_freq)
+        cube[start : start + wpi * spec.window_rows, channel, :] = rows
+        labels[i * wpi : (i + 1) * wpi] = y
+
+    zarrlite.write_group(
+        path, {"cube": cube}, chunks=(chunk_rows, 1, n_freq), compressor="zlib"
+    )
+    return labels

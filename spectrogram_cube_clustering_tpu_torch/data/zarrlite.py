@@ -13,7 +13,7 @@ A copy of the JAX package's `data/zarrlite.py` with its Python decode
 path only: the JAX reader decodes a batch of chunks through its native
 thread-pool decoder (`native/zarr_decode.cpp`), which belongs to the JAX
 package; here every chunk goes through `_read_chunk` (ROADMAP Queue 1
-item 7). Tests pin the copy to the original.
+item 21). Tests pin the copy to the original.
 
 Only step-1 orthogonal indexing (ints and contiguous slices) is supported —
 exactly what the cube reader uses.

@@ -138,7 +138,7 @@ def load_library() -> ctypes.CDLL:
             ]
             lib.scc_stftv_f32_launch.restype = i32
             lib.scc_stftv_passthrough_launch.argtypes = [
-                p, p, i64, i64, i64, i32, i32, i32, p,
+                p, p, i32, i32, i32, i32, i32, i32, p,
             ]
             lib.scc_stftv_passthrough_launch.restype = i32
             # csrc/stft_layout.cu

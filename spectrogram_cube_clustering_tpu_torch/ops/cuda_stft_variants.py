@@ -280,31 +280,59 @@ def passthrough_plain(x: torch.Tensor, hop: int = 100, ratio: int = 2,
     return out
 
 
+#: output rows a block of the passthrough kernel stages and writes (its
+#: `kTile`)
+TILE_ROWS = 64
+_INT32_MAX = 2**31 - 1
+_SMEM_BYTES = 227 * 1024  # an sm_90 block's dynamic shared memory
+
+
+def check_passthrough_range(b: int, t: int, rows: int, lanes: int, hop: int,
+                            ratio: int) -> None:
+    """Raise ValueError where the passthrough kernel's 32-bit indices
+    cannot reach a batch row (its samples, its outputs or its last staged
+    span past 2^31 - 1), or a tile's staged span exceeds a block's shared
+    memory; the launcher refuses the same geometry."""
+    if max(b, t, rows * lanes, (rows + ratio - 1) * hop) > _INT32_MAX:
+        raise ValueError(
+            f"passthrough geometry out of the kernel's 32-bit range: B={b}, "
+            f"T={t}, rows={rows}, lanes={lanes}, hop={hop}, ratio={ratio}")
+    if (TILE_ROWS + ratio - 1) * hop * 4 > _SMEM_BYTES:
+        raise ValueError(
+            f"passthrough tile of {TILE_ROWS} rows stages "
+            f"{(TILE_ROWS + ratio - 1) * hop * 4} bytes, over a block's "
+            f"{_SMEM_BYTES} of shared memory (hop={hop}, ratio={ratio})")
+
+
 def passthrough_cuda(x: torch.Tensor, hop: int = 100, ratio: int = 2,
                      rows: int = 1, lanes: int = 128) -> torch.Tensor:
     """Launch K4's passthrough kernel on a contiguous (B, T) float32 CUDA
-    tensor."""
+    tensor. The kernel indexes a batch row in 32 bits: a row of 2^31
+    samples or outputs (or a staged span of that size) is refused."""
     if x.device.type != "cuda":
         raise ValueError(f"the passthrough kernel needs a CUDA tensor, got "
                          f"{x.device}")
     if x.dtype != torch.float32 or not x.is_contiguous():
         raise TypeError("the passthrough kernel takes contiguous float32")
     b, t = _passthrough_geometry(x, hop, ratio, rows, lanes)
+    check_passthrough_range(b, t, rows, lanes, hop, ratio)
     lib = _build.load_library()
-    with torch.cuda.device(x.device):
-        out = torch.empty((b, rows, lanes), dtype=torch.float32,
-                          device=x.device)
-        if b == 0:
-            return out
-        err = lib.scc_stftv_passthrough_launch(
-            ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-            b, t, rows, hop, ratio, lanes,
-            ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
-        )
+    # the device context only where x is not on the current device: it
+    # costs the launch a few microseconds of host time
+    if x.device.index != torch.cuda.current_device():
+        with torch.cuda.device(x.device):
+            return passthrough_cuda(x, hop, ratio, rows, lanes)
+    out = torch.empty((b, rows, lanes), dtype=torch.float32, device=x.device)
+    if b == 0:
+        return out
+    err = lib.scc_stftv_passthrough_launch(
+        x.data_ptr(), out.data_ptr(), b, t, rows, hop, ratio, lanes,
+        torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(
             f"passthrough launch failed: "
-            f"{lib.scc_cuda_error_string(err).decode()}")
+            f"{lib.scc_cuda_error_string(err).decode()} (B={b}, T={t}, "
+            f"rows={rows}, hop={hop}, ratio={ratio}, lanes={lanes})")
     _count(PASSTHROUGH)
     return out
 

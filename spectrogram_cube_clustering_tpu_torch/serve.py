@@ -12,8 +12,14 @@ one device pass per chunk; the decoder is not run.
     frontend = serve.WaveformFrontend(predictor)
     out = frontend(waveform)            # raw (T,) or (C, T) samples
 
-Not ported yet (each raises NotImplementedError): mesh serving, wire
-dtypes other than float32, and `arch="packed"`; see ROADMAP.md.
+`transfer_dtype` ('bfloat16' | 'float16' | 'int8', `core.precision`) sets
+the wire a request crosses to the device in: the windows (or, on the fused
+waveform route, each chunk's raw samples, one int8 scale per channel) are
+encoded on the host and restored to float32 on the device before the
+normalizer, so the only effect is input quantization.
+
+Not ported yet (each raises NotImplementedError): mesh serving and
+`arch="packed"`; see ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -27,6 +33,12 @@ from spectrogram_cube_clustering_tpu_torch.core.device import (
     fp32_policy,
     resolve_device,
 )
+from spectrogram_cube_clustering_tpu_torch.core.precision import (
+    dequant_wire,
+    quantize_wire,
+    wire_dtype,
+    wire_to,
+)
 from spectrogram_cube_clustering_tpu_torch.models.aec import AEC
 from spectrogram_cube_clustering_tpu_torch.models.dec import DEC
 from spectrogram_cube_clustering_tpu_torch.ops.normalize import make_normalizer
@@ -38,15 +50,10 @@ from spectrogram_cube_clustering_tpu_torch.utils.weights import (
 )
 
 
-def _check_ported(arch: str, transfer_dtype: Optional[str], mesh) -> None:
+def _check_ported(arch: str, mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "mesh serving is not ported yet (ROADMAP.md Queue 1, Multi-GPU)"
-        )
-    if transfer_dtype not in (None, "float32"):
-        raise NotImplementedError(
-            f"transfer_dtype={transfer_dtype!r} is not ported yet; only "
-            "float32 (ROADMAP.md Queue 1, Streaming tier: the wire dtypes)"
         )
     if arch == "packed":
         raise NotImplementedError(
@@ -109,7 +116,11 @@ class _Predictor:
     device it turns TF32 off process-wide (`core.fp32_policy`), as the
     float32 reference requires."""
 
-    def __init__(self, model, max_batch, transform, buckets, device):
+    def __init__(self, model, max_batch, transform, buckets, device,
+                 transfer_dtype=None):
+        # "float32" is the full-width wire, as None
+        self._wire_dtype = wire_dtype(
+            None if transfer_dtype == "float32" else transfer_dtype)
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             fp32_policy()
@@ -126,10 +137,11 @@ class _Predictor:
             return _run_chunked(self._fn, x, self.sizes)
 
     def _host_call(self, windows: np.ndarray) -> tuple:
-        x = torch.from_numpy(np.ascontiguousarray(windows, np.float32))
-        return tuple(
-            o.cpu().numpy() for o in self.predict_tensor(x.to(self.device))
-        )
+        """Host windows -> host outputs, across the wire (encoded on the
+        host, restored to float32 on the device)."""
+        enc = quantize_wire(np.asarray(windows, np.float32), self._wire_dtype)
+        x = dequant_wire(wire_to(enc, self.device))
+        return tuple(o.cpu().numpy() for o in self.predict_tensor(x))
 
     def warmup(self) -> None:
         """Run every bucket once (cuDNN and allocator set-up) before traffic."""
@@ -157,13 +169,14 @@ class DECPredictor(_Predictor):
         attention_faithful: bool = True,
         device=None,
     ):
-        _check_ported(arch, transfer_dtype, mesh)
+        _check_ported(arch, mesh)
         model = DEC(
             n_clusters, input_hw=input_hw,
             attention_faithful=attention_faithful,
         )
         model.load_state_dict(state_dict)
-        super().__init__(model, max_batch, transform, buckets, device)
+        super().__init__(model, max_batch, transform, buckets, device,
+                         transfer_dtype)
 
     @classmethod
     def from_checkpoint(cls, path: str, n_clusters: int, **kw) -> "DECPredictor":
@@ -197,13 +210,14 @@ class AECEncoder(_Predictor):
         attention_faithful: bool = True,
         device=None,
     ):
-        _check_ported(arch, transfer_dtype, mesh)
+        _check_ported(arch, mesh)
         model = AEC(input_hw=input_hw, attention_faithful=attention_faithful)
         # a DEC checkpoint serves its encoder too: the centroids are unused
         model.load_state_dict(
             {k: v for k, v in state_dict.items() if k != "clustering.weights"}
         )
-        super().__init__(model, max_batch, transform, buckets, device)
+        super().__init__(model, max_batch, transform, buckets, device,
+                         transfer_dtype)
 
     @classmethod
     def from_checkpoint(cls, path: str, **kw) -> "AECEncoder":
@@ -228,7 +242,9 @@ class WaveformFrontend:
 
     With `fuse=None` (auto) a bare predictor takes the FUSED route: STFT,
     normalization and model run on the device and the windows never leave
-    it. A predictor without `predict_tensor` (a `MicroBatcher`), or
+    it; the raw samples cross in the predictor's `transfer_dtype`, each
+    chunk's segment encoded on the host (int8: one scale per channel and
+    segment, as the JAX frontend's rank-1 segments). A predictor without `predict_tensor` (a `MicroBatcher`), or
     `fuse=False`, takes the two-pass route: `windows()` brings the windows
     to the host and the predictor (or batcher) takes them from there.
     """
@@ -275,6 +291,7 @@ class WaveformFrontend:
                 f"{type(predictor).__name__}"
             )
         self.fused = bool(fuse)
+        self._fused_wire = getattr(predictor, "_wire_dtype", None)
 
     def n_windows(self, t: int) -> int:
         """Windows one channel of length-t samples yields."""
@@ -296,15 +313,20 @@ class WaveformFrontend:
             )
         return w
 
-    def _per_chunk(self, w: np.ndarray, fn) -> tuple:
+    def _per_chunk(self, w: np.ndarray, fn, wire=None) -> tuple:
         """fn(channel-major windows of one time chunk) -> per-window outputs,
-        reassembled channel-major over the whole request."""
-        x = torch.from_numpy(np.ascontiguousarray(w)).to(self.device)
-        channels, n_win = x.shape[0], self.n_windows(x.shape[1])
+        reassembled channel-major over the whole request. With a `wire`
+        dtype each chunk's samples cross encoded and are restored to
+        float32 on the device; without, the request crosses once."""
+        channels, n_win = w.shape[0], self.n_windows(w.shape[1])
+        if wire is None:
+            x = torch.from_numpy(np.ascontiguousarray(w)).to(self.device)
         seg_len = self.chunk + self.nperseg - self.hop
         parts = []
         for c in range(-(-n_win // self._win_per_chunk)):
-            seg = x[:, c * self.chunk : c * self.chunk + seg_len]
+            span = slice(c * self.chunk, c * self.chunk + seg_len)
+            seg = x[:, span] if wire is None else dequant_wire(wire_to(
+                quantize_wire(w[:, span], wire), self.device))
             windows = spectrogram_windows(
                 seg, nperseg=self.nperseg, hop=self.hop,
                 window_rows=self.window_rows, transform=None,
@@ -339,7 +361,8 @@ class WaveformFrontend:
         w = self._as_channels(wave)
         if self.fused:
             outs = [o.cpu().numpy()
-                    for o in self._per_chunk(w, self.predictor.predict_tensor)]
+                    for o in self._per_chunk(w, self.predictor.predict_tensor,
+                                             self._fused_wire)]
             keys = ("q", "labels", "z") if len(outs) == 3 else ("z",)
             out = dict(zip(keys, outs))
         else:

@@ -545,6 +545,11 @@ def main(argv=None) -> int:
                     action=argparse.BooleanOptionalAction, default=True,
                     help="pad each chunk to the smallest power-of-two size "
                     "that fits instead of to --max-batch")
+    ap.add_argument("--transfer-dtype", default=None,
+                    choices=["bfloat16", "float16", "int8"],
+                    help="host->device wire encoding: half-width floats "
+                         "or per-sample symmetric int8 (quarter bytes; "
+                         "core.precision.quantize_wire)")
     ap.add_argument("--max-wait-ms", type=float, default=2.0,
                     help="micro-batching window (0 disables coalescing)")
     ap.add_argument("--max-request-mb", type=float, default=256.0,
@@ -578,6 +583,7 @@ def main(argv=None) -> int:
         max_batch=args.max_batch, transform=args.transform,
         buckets=args.buckets or None, input_hw=tuple(args.input_hw),
         attention_faithful=args.attention_faithful, device=args.device,
+        transfer_dtype=args.transfer_dtype,
     )
     if args.model == "DEC":
         if args.n_clusters is None:

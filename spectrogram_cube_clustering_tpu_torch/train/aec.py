@@ -10,15 +10,21 @@ its per-epoch path; reference Cluster/models.py:761-926).
   and the best-validation params are the final ones;
 - a snapshot after every epoch when asked (`train/checkpoint.py`), from
   which `resume` continues.
+
+`train_aec_stream` runs the same epoch control (`_run_epochs`) over a
+streaming loader (`data.prefetch.PrefetchLoader`, `loadmode = stream`):
+one step per batch, losses kept on the device until the epoch ends.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
+from spectrogram_cube_clustering_tpu_torch.core.precision import dequant_wire
 from spectrogram_cube_clustering_tpu_torch.train import checkpoint as ckpt
 from spectrogram_cube_clustering_tpu_torch.train.layout import BatchedData
 from spectrogram_cube_clustering_tpu_torch.train.state import (
@@ -65,6 +71,100 @@ def eval_epoch(model, data: BatchedData) -> float:
     return float(sums / torch.clamp(torch.sum(data.mask), min=1.0))
 
 
+def _run_epochs(
+    model,
+    state: TrainState,
+    config: AECConfig,
+    run_epoch: Callable[[TrainState], Tuple[float, float]],
+    log_scalar: Optional[Callable[[str, float, int], None]] = None,
+    save_checkpoint: Optional[Callable[[str, object], None]] = None,
+    snapshot_path: Optional[str] = None,
+    snapshot_every: int = 1,
+    resume: bool = False,
+) -> Dict:
+    """The epoch control of both paths: `run_epoch(state)` trains one
+    epoch and returns its (training, validation) loss; this loop keeps
+    the history, early stopping, checkpoints and snapshots (every
+    `snapshot_every` epochs, at the early stop and after the last epoch),
+    and resumes from a snapshot."""
+    if state.model is not model:
+        raise ValueError("state must optimize the model being trained")
+    best_val = float("inf")
+    best_params = None
+    strikes = 0
+    finished = False
+    history: Dict[str, List[float]] = {"epoch": [], "train": [], "validation": []}
+    start_epoch = 0
+    if resume and snapshot_path is not None and ckpt.snapshot_exists(
+            snapshot_path):
+        state, meta, extra = ckpt.restore_snapshot(snapshot_path, state)
+        start_epoch = meta["epoch"]
+        history = meta["history"]
+        best_val = meta["best_val"]
+        strikes = meta["strikes"]
+        if meta["have_best"]:
+            best_params = extra
+        finished = bool(meta["done"])
+        if config.verbose:
+            print(f"Resumed from {snapshot_path} at epoch {start_epoch}")
+    epoch = start_epoch - 1
+    for epoch in () if finished else range(start_epoch, config.n_epochs):
+        tra_loss, val_loss = run_epoch(state)
+        history["epoch"].append(epoch + 1)
+        history["train"].append(tra_loss)
+        history["validation"].append(val_loss)
+        if log_scalar is not None:
+            log_scalar("Training MSE", tra_loss, epoch + 1)
+            log_scalar("Validation MSE", val_loss, epoch + 1)
+        if config.verbose:
+            print(
+                f"Epoch [{epoch + 1}/{config.n_epochs}] "
+                f"train={tra_loss:.4e} val={val_loss:.4e}"
+            )
+        if config.early_stopping:
+            if val_loss < best_val:
+                strikes = 0
+                best_val = val_loss
+                best_params = params_copy(model)
+                if save_checkpoint is not None:
+                    save_checkpoint("AEC_Best_Weights", best_params)
+            else:
+                strikes += 1
+            if epoch > config.patience and strikes > config.patience:
+                finished = True
+        elif save_checkpoint is not None:
+            save_checkpoint(f"AEC_Params_{epoch + 1:03d}", params_copy(model))
+        if snapshot_path is not None and (
+            (epoch + 1) % snapshot_every == 0 or finished
+            or epoch + 1 == config.n_epochs
+        ):
+            # `done` marks a snapshot written at the early stop, so a
+            # resume does not train past the stopping point
+            ckpt.save_snapshot(
+                snapshot_path, state,
+                {"epoch": epoch + 1, "history": history,
+                 "best_val": best_val, "strikes": strikes,
+                 "have_best": best_params is not None, "done": finished},
+                extra=best_params,
+            )
+        if finished:
+            break
+
+    final_params = (
+        best_params
+        if (config.early_stopping and best_params is not None)
+        else params_copy(model)
+    )
+    return {
+        "state": state,
+        "final_params": final_params,
+        "best_val": best_val,
+        "history": history,
+        "stopped_early": finished,
+        "last_epoch": epoch + 1,
+    }
+
+
 def train_aec(
     model,
     state: TrainState,
@@ -91,77 +191,87 @@ def train_aec(
     `resume=True` continues from it: the history goes on without a gap,
     and a snapshot written at the early stop stays stopped."""
     del sync_every
-    if state.model is not model:
-        raise ValueError("state must optimize the model being trained")
-    best_val = float("inf")
-    best_params = None
-    strikes = 0
-    finished = False
-    history: Dict[str, List[float]] = {"epoch": [], "train": [], "validation": []}
-    start_epoch = 0
-    if resume and snapshot_path is not None and ckpt.snapshot_exists(
-            snapshot_path):
-        state, meta, extra = ckpt.restore_snapshot(snapshot_path, state)
-        start_epoch = meta["epoch"]
-        history = meta["history"]
-        best_val = meta["best_val"]
-        strikes = meta["strikes"]
-        if meta["have_best"]:
-            best_params = extra
-        finished = bool(meta["done"])
-        if config.verbose:
-            print(f"Resumed from {snapshot_path} at epoch {start_epoch}")
-    epoch = start_epoch - 1
-    for epoch in () if finished else range(start_epoch, config.n_epochs):
-        tra_loss = train_epoch(state, tra)
-        val_loss = eval_epoch(model, val) if val is not None else tra_loss
-        history["epoch"].append(epoch + 1)
-        history["train"].append(tra_loss)
-        history["validation"].append(val_loss)
-        if log_scalar is not None:
-            log_scalar("Training MSE", tra_loss, epoch + 1)
-            log_scalar("Validation MSE", val_loss, epoch + 1)
-        if config.verbose:
-            print(
-                f"Epoch [{epoch + 1}/{config.n_epochs}] "
-                f"train={tra_loss:.4e} val={val_loss:.4e}"
-            )
-        if config.early_stopping:
-            if val_loss < best_val:
-                strikes = 0
-                best_val = val_loss
-                best_params = params_copy(model)
-                if save_checkpoint is not None:
-                    save_checkpoint("AEC_Best_Weights", best_params)
-            else:
-                strikes = 1 if epoch == 0 else strikes + 1
-            if epoch > config.patience and strikes > config.patience:
-                finished = True
-        elif save_checkpoint is not None:
-            save_checkpoint(f"AEC_Params_{epoch + 1:03d}", params_copy(model))
-        if snapshot_path is not None:
-            # `done` marks a snapshot written at the early stop, so a
-            # resume does not train past the stopping point
-            ckpt.save_snapshot(
-                snapshot_path, state,
-                {"epoch": epoch + 1, "history": history,
-                 "best_val": best_val, "strikes": strikes,
-                 "have_best": best_params is not None, "done": finished},
-                extra=best_params,
-            )
-        if finished:
-            break
 
-    final_params = (
-        best_params
-        if (config.early_stopping and best_params is not None)
-        else params_copy(model)
-    )
-    return {
-        "state": state,
-        "final_params": final_params,
-        "best_val": best_val,
-        "history": history,
-        "stopped_early": finished,
-        "last_epoch": epoch + 1,
-    }
+    def run_epoch(state):
+        tra_loss = train_epoch(state, tra)
+        return tra_loss, (eval_epoch(model, val) if val is not None
+                          else tra_loss)
+
+    return _run_epochs(model, state, config, run_epoch, log_scalar,
+                       save_checkpoint, snapshot_path, 1, resume)
+
+
+def make_step_fns(model):
+    """(train_step(state, x, n_valid) -> loss, eval_step(x, n_valid) ->
+    loss) for the streaming path: the masked MSE over the first n_valid
+    rows of a loader batch, restored to float32 on the device first (the
+    loader's wire encodings, `core.precision.dequant_wire`). Losses are
+    0-d tensors on the batch's device."""
+
+    def loss_fn(x, n_valid: int):
+        x = dequant_wire(x)
+        mask = (torch.arange(x.shape[0], device=x.device)
+                < n_valid).to(x.dtype)
+        x_rec, _ = model(x)
+        d = x_rec - x
+        per = torch.mean(d * d, dim=tuple(range(1, x.dim())))
+        return torch.sum(per * mask) / max(float(n_valid), 1.0)
+
+    def train_step(state: TrainState, x, n_valid: int) -> torch.Tensor:
+        loss = loss_fn(x, n_valid)
+        loss.backward()
+        state.apply_gradients()
+        return loss.detach()
+
+    @torch.no_grad()
+    def eval_step(x, n_valid: int) -> torch.Tensor:
+        return loss_fn(x, n_valid)
+
+    return train_step, eval_step
+
+
+def _weighted_mean(losses: List[torch.Tensor], ns: List[int]) -> float:
+    """Batch losses weighted by their valid rows, in float64 on the host
+    (one device sync for the epoch)."""
+    if not losses:
+        return 0.0
+    ln = torch.stack(losses).cpu().numpy().astype(np.float64)
+    nn = np.asarray(ns, np.float64)
+    return float((ln * nn).sum() / max(nn.sum(), 1))
+
+
+def train_aec_stream(
+    model,
+    state: TrainState,
+    make_loader,
+    config: AECConfig,
+    make_val_loader=None,
+    snapshot_path: Optional[str] = None,
+    snapshot_every: int = 1,
+    resume: bool = False,
+) -> Dict:
+    """AEC pretraining over a streaming loader: `make_loader()` returns an
+    iterable of (device batch, n_valid) for one epoch. Early stopping,
+    history and the result are `train_aec`'s (validation on
+    `make_val_loader`, else the training loss). With `snapshot_path` a
+    snapshot is written every `snapshot_every` epochs, at the early stop
+    and after the last epoch; `resume=True` continues from it."""
+    train_step, eval_step = make_step_fns(model)
+
+    def run_epoch(state):
+        losses, ns = [], []
+        for x, n_valid in make_loader():
+            losses.append(train_step(state, x, n_valid))
+            ns.append(n_valid)
+        tra_loss = _weighted_mean(losses, ns)
+        if make_val_loader is None:
+            return tra_loss, tra_loss
+        vl, vn = [], []
+        for x, n_valid in make_val_loader():
+            vl.append(eval_step(x, n_valid))
+            vn.append(n_valid)
+        return tra_loss, _weighted_mean(vl, vn)
+
+    return _run_epochs(model, state, config, run_epoch,
+                       snapshot_path=snapshot_path,
+                       snapshot_every=snapshot_every, resume=resume)

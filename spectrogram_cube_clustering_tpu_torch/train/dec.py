@@ -15,8 +15,12 @@ reference Cluster/models.py:929-1231).
   which `resume` continues.
 
 The module holds the params, so unlike the JAX functions these take no
-params argument. The loop is plain Python over device-resident batches,
-with a host sync only at refreshes and segment ends.
+params argument. One loop (`_train_dec`) runs both paths, plain Python
+with a host sync only at refreshes and segment ends: `train_dec` over
+device-resident batches, `train_dec_stream` over a streaming loader
+(`loadmode = stream`), whose iteration must be deterministic and
+unshuffled, since p is sliced by the running sample offset, and whose
+refreshes are streamed full evals (`full_eval_stream`).
 """
 
 from __future__ import annotations
@@ -28,6 +32,10 @@ import numpy as np
 import torch
 
 from spectrogram_cube_clustering_tpu_torch.core.device import fp32_policy_for
+from spectrogram_cube_clustering_tpu_torch.core.precision import (
+    dequant_wire,
+    wire_array,
+)
 from spectrogram_cube_clustering_tpu_torch.models.dec import replace_centroids
 from spectrogram_cube_clustering_tpu_torch.ops.losses import dec_loss
 from spectrogram_cube_clustering_tpu_torch.ops.student_t import (
@@ -81,12 +89,6 @@ def full_eval(model, data: BatchedData, with_xr: bool = False):
     return q, labels, torch.cat(zs)
 
 
-def _pad_p(p: torch.Tensor, n_batches: int, batch: int) -> torch.Tensor:
-    flat = p.new_zeros((n_batches * batch, p.shape[-1]))
-    flat[: p.shape[0]] = p
-    return flat.reshape(n_batches, batch, -1)
-
-
 def initialize_clusters(
     model,
     data: BatchedData,
@@ -97,9 +99,16 @@ def initialize_clusters(
     data's device. Reference: models.py:498-543. `load` takes them from
     `initial`; `rand` draws them from numpy's generator exactly as the
     JAX package does; `kmeans` and `gmm` cluster the model's latents."""
+    return _init_clusters(model, config, data.n_samples, initial,
+                          lambda: full_eval(model, data)[2], data.x.device)
+
+
+def _init_clusters(model, config: DECConfig, n_samples: int, initial,
+                   latents, device):
+    """`initialize_clusters` with the latents from `latents()`, called
+    only for kmeans and gmm."""
     from spectrogram_cube_clustering_tpu_torch import cluster
 
-    device = data.x.device
     k = config.n_clusters
     if config.init == "load":
         if initial is None:
@@ -107,16 +116,16 @@ def initialize_clusters(
         labels, centroids = initial
     elif config.init == "rand":
         rng = np.random.default_rng(config.seed)
-        labels = rng.integers(0, k, size=data.n_samples)
+        labels = rng.integers(0, k, size=n_samples)
         latent_dim = model.clustering.weights.shape[1]
         centroids = rng.uniform(size=(k, latent_dim)).astype(np.float32)
     elif config.init == "kmeans":
         labels, centroids = cluster.kmeans(
-            full_eval(model, data)[2], k, n_init=config.kmeans_n_init,
+            latents(), k, n_init=config.kmeans_n_init,
             max_iter=config.kmeans_max_iter, seed=config.seed)
     elif config.init == "gmm":
         labels, centroids = cluster.gmm(
-            full_eval(model, data)[2], k, n_init=config.kmeans_n_init,
+            latents(), k, n_init=config.kmeans_n_init,
             kmeans_max_iter=config.kmeans_max_iter, seed=config.seed)
     else:
         raise ValueError(f"unknown init {config.init!r}")
@@ -126,21 +135,19 @@ def initialize_clusters(
     )
 
 
-def _flush(pending, running, history, n_iter, log_scalar):
-    """Turn a segment's per-batch sums (loss*nv, rec*nv, clust*nv, nv) into
-    history rows of the epoch's running means and log the last of them;
-    returns (running, n_iter)."""
-    if not pending:
+def _flush(per: np.ndarray, running, history, n_iter, log_scalar):
+    """Turn a segment's per-batch sums (S, 4) (loss*nv, rec*nv, clust*nv,
+    nv) into history rows of the epoch's running means and log the last
+    of them; returns (running, n_iter)."""
+    if not len(per):
         return running, n_iter
-    per = torch.stack(pending).cpu().numpy().astype(np.float64)  # (S, 4)
     cum = running[None, :] + np.cumsum(per, axis=0)
     sizes = np.maximum(cum[:, 3], 1.0)
-    for j in range(len(pending)):
+    for j in range(len(per)):
         history["iteration"].append(n_iter + j)
         history["total"].append(float(cum[j, 0] / sizes[j]))
         history["reconstruction"].append(float(cum[j, 1] / sizes[j]))
         history["clustering"].append(float(cum[j, 2] / sizes[j]))
-    pending.clear()
     n_iter += len(per)
     if log_scalar is not None:
         accum = cum[-1, :3] / sizes[-1]
@@ -148,6 +155,11 @@ def _flush(pending, running, history, n_iter, log_scalar):
         log_scalar("MSE", accum[1], n_iter - 1)
         log_scalar("KLD", accum[2], n_iter - 1)
     return cum[-1].copy(), n_iter
+
+
+def _host(a) -> np.ndarray:
+    """A tensor or array as a numpy array."""
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
 def train_dec(
@@ -164,8 +176,8 @@ def train_dec(
 ) -> Dict:
     """Run DEC refinement on `model` (the module `state` optimizes).
     Returns the state, the params after cluster init (`initial_params`),
-    the histories, the final labels and centroids (numpy), whether the
-    delta criterion stopped the run, and the last epoch.
+    the histories, the final labels (int32) and centroids (numpy), whether
+    the delta criterion stopped the run, and the last epoch.
 
     `snapshot_cb(epoch, labels, z, centroids, initial=(z0, labels0,
     centroids0))` is called every `snapshot_every` epochs with numpy
@@ -173,16 +185,28 @@ def train_dec(
     the target distribution, the previous labels, the histories) is
     written after every epoch that did not stop; `resume=True` continues
     from it without cluster init, and `initial_params` is then None."""
+    m, bsz = data.n_samples, data.batch_size
+
+    def batches():
+        for i in range(data.n_batches):
+            yield data.x[i], min(bsz, m - i * bsz)
+
+    return _train_dec(model, state, config, batches,
+                      lambda: full_eval(model, data), m, data.x.device,
+                      initial, log_scalar, snapshot_cb, snapshot_every,
+                      snapshot_path, resume)
+
+
+def _train_dec(model, state, config: DECConfig, batches, evaluate, m: int,
+               device, initial, log_scalar, snapshot_cb, snapshot_every,
+               snapshot_path, resume) -> Dict:
+    """The refinement of both paths. `batches()` yields one epoch's
+    (batch, n_valid) in sample order, the same every pass: the target p
+    is sliced by the running sample offset. `evaluate()` is the full eval,
+    (q rounded to 5 decimals and int32 labels on `device`, z)."""
     if state.model is not model:
         raise ValueError("state must optimize the model being trained")
-    m, nb, bsz = data.n_samples, data.n_batches, data.batch_size
-    if config.update_interval == -1:
-        update_interval = int(np.ceil(m / (bsz * 2)))
-    else:
-        # explicit values are batches between refreshes (models.py:1093)
-        update_interval = int(config.update_interval)
-    update_interval = max(update_interval, 1)
-
+    train_step = make_stream_fns(model, config.gamma)[0]
     history: Dict[str, List[float]] = {
         "iteration": [], "reconstruction": [], "clustering": [], "total": [],
     }
@@ -197,59 +221,79 @@ def train_dec(
         state, meta, extra = ckpt.restore_snapshot(snapshot_path, state)
         start_epoch = meta["epoch"]
         history, deltas, n_iter = meta["history"], meta["deltas"], meta["n_iter"]
-        p_all, labels_prev = extra["p_all"], extra["labels_prev"]
+        p = extra["p"].to(device)
+        labels_prev = extra["labels_prev"].to(device)
         initial_params = None
     else:
-        labels_prev, centroids = initialize_clusters(model, data, config,
-                                                     initial)
+        labels_prev, centroids = _init_clusters(
+            model, config, m, initial,
+            lambda: torch.as_tensor(evaluate()[2], device=device), device)
         replace_centroids(model, centroids)
         initial_params = params_copy(model)
-        q, _, z0 = full_eval(model, data)
+        q, _, z0 = evaluate()
         if snapshot_cb is not None:
-            initial_snapshot = (z0.cpu().numpy(), labels_prev.cpu().numpy(),
-                                centroids.cpu().numpy())
+            initial_snapshot = (_host(z0), _host(labels_prev),
+                                _host(centroids))
         del z0
-        p_all = _pad_p(target_distribution(q), nb, bsz)
+        p = target_distribution(q)
 
     finished = False
     epoch = start_epoch - 1
     for epoch in range(start_epoch, config.n_epochs):
+        batch_num = 0
+        offset = 0
         running = np.zeros(4)  # loss, rec, clust, size (epoch-accumulated)
-        pending: List[torch.Tensor] = []
-        for batch_num in range(nb):
+        # per-batch losses stay on the device until a refresh or the
+        # epoch's end: one sync per segment
+        pending: List[tuple] = []
+
+        def sums() -> np.ndarray:
+            if not pending:
+                return np.zeros((0, 4))
+            vals = torch.stack([torch.stack(b[:3]) for b in pending])
+            vals = vals.cpu().numpy().astype(np.float64)
+            nvs = np.asarray([b[3] for b in pending], np.float64)
+            pending.clear()
+            return np.concatenate([vals * nvs[:, None], nvs[:, None]], axis=1)
+
+        for x, n_valid in batches():
+            bsz = wire_array(x).shape[0]
+            if config.update_interval == -1:
+                update_interval = max(int(np.ceil(m / (bsz * 2))), 1)
+            else:
+                # batches between refreshes (reference models.py:1093)
+                update_interval = max(int(config.update_interval), 1)
             if batch_num % update_interval == 0 and not (
                 batch_num == 0 and epoch == 0
             ):
-                running, n_iter = _flush(pending, running, history, n_iter,
+                running, n_iter = _flush(sums(), running, history, n_iter,
                                          log_scalar)
-                q, labels, _ = full_eval(model, data)
-                p_all = _pad_p(target_distribution(q), nb, bsz)
-                delta_t = torch.mean((labels != labels_prev).to(torch.float32))
-                delta = float(delta_t)
+                q, labels, _ = evaluate()
+                p = target_distribution(q)
+                delta = float(torch.mean((labels != labels_prev)
+                                         .to(torch.float32)))
                 deltas["iteration"].append(n_iter)
                 deltas["delta"].append(delta)
                 if log_scalar is not None:
                     log_scalar("delta", delta, n_iter)
                 labels_prev = labels
-                if bool(delta_t < config.tol):
+                if delta < config.tol:
                     if config.verbose:
                         print("Stop criterion met, training complete.")
                     finished = True
                     break
-            x, mask = data.x[batch_num], data.mask[batch_num]
-            q_b, x_rec, _ = model(x)
-            loss, (rec, clust) = dec_loss(x_rec, x, q_b, p_all[batch_num],
-                                          config.gamma, mask=mask)
-            loss.backward()
-            state.apply_gradients()
-            nvalid = torch.clamp(torch.sum(mask), min=1.0)
-            pending.append(
-                torch.stack([loss * nvalid, rec * nvalid, clust * nvalid,
-                             nvalid]).detach()
-            )
-        running, n_iter = _flush(pending, running, history, n_iter,
+            p_slice = p[offset:offset + bsz]
+            if len(p_slice) < bsz:  # the trailing padded batch
+                p_slice = torch.cat(
+                    [p_slice, p_slice.new_zeros((bsz - len(p_slice),
+                                                 p.shape[1]))])
+            loss, rec, clust = train_step(state, x, p_slice, n_valid)
+            pending.append((loss, rec, clust, n_valid))
+            offset += n_valid
+            batch_num += 1
+        running, n_iter = _flush(sums(), running, history, n_iter,
                                  log_scalar)
-        if config.verbose:
+        if config.verbose and not finished:
             accum = running[:3] / max(running[3], 1.0)
             print(
                 f"Epoch [{epoch + 1}/{config.n_epochs}] "
@@ -257,9 +301,9 @@ def train_dec(
             )
         if (snapshot_cb is not None and not finished
                 and (epoch + 1) % snapshot_every == 0):
-            _, labels_s, z_s = full_eval(model, data)
+            _, labels_s, z_s = evaluate()
             snapshot_cb(
-                epoch + 1, labels_s.cpu().numpy(), z_s.cpu().numpy(),
+                epoch + 1, _host(labels_s), _host(z_s),
                 model.clustering.weights.detach().cpu().numpy(),
                 initial=initial_snapshot,
             )
@@ -268,19 +312,94 @@ def train_dec(
                 snapshot_path, state,
                 {"epoch": epoch + 1, "history": history, "deltas": deltas,
                  "n_iter": n_iter},
-                extra={"p_all": p_all, "labels_prev": labels_prev},
+                extra={"p": p, "labels_prev": labels_prev},
             )
         if finished:
             break
 
     return {
         "state": state,
-        "initial_params": initial_params,
+        "initial_params": initial_params,  # None when resumed
         "history": history,
         "deltas": deltas,
-        "labels": labels_prev.cpu().numpy(),
+        "labels": _host(labels_prev),
         "centroids": model.clustering.weights.detach().cpu().numpy(),
         "stopped_early": finished,
         "last_epoch": epoch + 1,
     }
 
+
+# ---------------------------------------------------------------- streaming
+
+
+def make_stream_fns(model, gamma: float):
+    """(train_step(state, x, p, n_valid) -> (loss, rec, clust),
+    eval_step(x) -> (q rounded to 5 decimals, z)) for the streaming path:
+    the loss of `train_dec` over the first n_valid rows of a loader batch,
+    restored to float32 on the device first (`core.precision.
+    dequant_wire`)."""
+
+    def train_step(state: TrainState, x, p: torch.Tensor, n_valid: int):
+        x = dequant_wire(x)
+        mask = (torch.arange(x.shape[0], device=x.device)
+                < n_valid).to(x.dtype)
+        q_b, x_rec, _ = model(x)
+        loss, (rec, clust) = dec_loss(x_rec, x, q_b, p, gamma, mask=mask)
+        loss.backward()
+        state.apply_gradients()
+        return loss.detach(), rec.detach(), clust.detach()
+
+    @torch.no_grad()
+    def eval_step(x):
+        q, _, z = model(dequant_wire(x))
+        return torch.round(q, decimals=5), z
+
+    return train_step, eval_step
+
+
+def full_eval_stream(eval_step, make_loader, m_total: int):
+    """Streamed full-dataset eval: (q (M, K), labels (M,), z (M, D)) as
+    numpy. Each batch's outputs stay on the device until the loader is
+    exhausted: a fetch per batch would stall the pipeline on every step."""
+    qs, zs = [], []
+    seen = 0
+    for x, n_valid in make_loader():
+        q, z = eval_step(x)
+        take = min(n_valid, m_total - seen)
+        qs.append(q[:take])
+        zs.append(z[:take])
+        seen += take
+    q = torch.cat(qs).cpu().numpy()
+    z = torch.cat(zs).cpu().numpy()
+    return q, q.argmax(axis=1), z
+
+
+def train_dec_stream(
+    model,
+    state: TrainState,
+    make_loader,
+    m_total: int,
+    config: DECConfig,
+    initial: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+    snapshot_path: Optional[str] = None,
+    resume: bool = False,
+    snapshot_cb: Optional[Callable] = None,
+    snapshot_every: int = 4,
+) -> Dict:
+    """DEC refinement over a streaming loader: `make_loader()` yields
+    (device batch, n_valid) in the same order every pass. Semantics and
+    result are `train_dec`'s; each refresh streams the whole dataset
+    through `full_eval_stream`. `snapshot_path`/`resume` as in
+    `train_dec` (the snapshot holds p and the previous labels)."""
+    eval_step = make_stream_fns(model, config.gamma)[1]
+    device = next(model.parameters()).device
+    fp32_policy_for(device)
+
+    def evaluate():
+        q, labels, z = full_eval_stream(eval_step, make_loader, m_total)
+        return (torch.from_numpy(q).to(device),
+                torch.from_numpy(labels).to(device, torch.int32), z)
+
+    return _train_dec(model, state, config, make_loader, evaluate, m_total,
+                      device, initial, None, snapshot_cb, snapshot_every,
+                      snapshot_path, resume)

@@ -1,6 +1,6 @@
 """Workflow data loading (counterpart of the JAX package's
-`workflow/data.py`; reference Cluster/production.py:25-62), with
-`loadmode = ram`:
+`workflow/data.py`; reference Cluster/production.py:25-62), the windows in
+memory (`loadmode = ram`):
 
 - AEC train -> windows with a seeded 70/30 train/val split;
 - DEC train / AEC|DEC predict -> all windows, unsplit;
@@ -19,8 +19,10 @@ The windows land on `config.device` (default: the card; the CPU only when asked)
 normalization comes later (`workflow.train._normalize`). The seconds the
 source read took (Zarr decode or `.npy` load and STFT, with the copy to
 the device) are kept in `config.load_seconds`. `datafiletype = h5` raises:
-it needs h5py, which the card's machine lacks (ROADMAP Queue 1 item 14);
-`loadmode = stream` is item 7.
+it needs h5py, which the card's machine lacks (ROADMAP Queue 1 item 14).
+This loads every window whatever `loadmode` says, as the JAX package's
+does: the stages dispatch `loadmode = stream` before they load
+(`workflow.train._train_stream`, `workflow.predict._predict_stream`).
 """
 
 from __future__ import annotations
@@ -81,11 +83,6 @@ def load_windows(
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Windows as float32 tensors on `config.device`: (train, val or None).
     Records the window geometry in `config.input_hw` for `make_model`."""
-    if getattr(config, "loadmode", None) == "stream":
-        raise NotImplementedError(
-            "loadmode='stream' is not ported yet: ROADMAP Queue 1 item 7 "
-            "(streaming tier)"
-        )
     ftype = getattr(config, "datafiletype", None) or "zarr"
     if ftype == "h5":
         raise NotImplementedError(

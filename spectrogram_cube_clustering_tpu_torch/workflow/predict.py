@@ -1,6 +1,7 @@
 """Workflow: full-catalog inference (counterpart of the JAX package's
 `workflow/predict.py`; reference Cluster/production.py:65-106,
-models.py:577-733), `loadmode = ram`, one device.
+models.py:577-733), one device, with `loadmode = ram` or `stream`
+(`_predict_stream`).
 
 The forward pass runs on `config.device` in chunks of
 `batch_size_predict` windows (default 4096, production.py:68). Artifacts
@@ -15,22 +16,40 @@ in `<run dir>/Prediction/`:
 Saved spectrogram arrays keep the reference's NCHW layout (M, 1, 4, W).
 The silhouette and t-SNE figures are ROADMAP Queue 1 item 9:
 `figures=True` raises.
+
+`loadmode = stream` never holds the windows at once: batches stream
+through the model from the prefetch loader, q, z and labels accumulate on
+the host, Xr streams into an on-disk `.npy` memmap, and the cluster
+metrics run on a seeded subsample (`silh_max_samples`, default 20,000)
+whose windows are read again. `stream_transfer_dtype` sets the wire both
+ways: the loader's batches up, the reconstructions down (restored to
+float32 on the host). The artifact names are the ram path's.
 """
 
 from __future__ import annotations
 
 import os
+from collections import deque
 from typing import Dict
 
 import numpy as np
 import torch
 
 from spectrogram_cube_clustering_tpu_torch import cluster as _cluster
+from spectrogram_cube_clustering_tpu_torch.core.device import resolve_device
+from spectrogram_cube_clustering_tpu_torch.core.precision import (
+    dequant_wire,
+    quantize_tensor,
+    wire_dtype,
+)
 from spectrogram_cube_clustering_tpu_torch.utils.history import save_labels
 from spectrogram_cube_clustering_tpu_torch.workflow.data import load_data
 from spectrogram_cube_clustering_tpu_torch.workflow.train import (
     _figures_not_ported,
     _normalize,
+    _np_normalizer,
+    _stream_dataset,
+    _stream_loader_factory,
     check_not_ported,
     load_aec_params,
     make_model,
@@ -63,6 +82,8 @@ def predict(config, mesh=None, figures: bool = True) -> Dict:
     if figures:
         raise _figures_not_ported(
             "predict(figures=True) (silhouette and t-SNE figures)")
+    if getattr(config, "loadmode", None) == "stream":
+        return _predict_stream(config)
     x = _normalize(config, load_data(config))
     print(f"Dataset has {len(x)} samples.")
     savepath = config.savepath_exp
@@ -106,3 +127,111 @@ def predict(config, mesh=None, figures: bool = True) -> Dict:
     np.save(os.path.join(savepath, "Z_AEC"), z_np)
     np.save(os.path.join(savepath, "Xr_AEC"), xr_np)
     return {"z": z_np, "x_rec": xr_np, "loss": total_loss}
+
+
+def _read_windows(ds, sel: np.ndarray, normalize) -> np.ndarray:
+    """The normalized windows at the sorted dataset indices `sel`, with one
+    read of each item they fall in. Items may differ in windows (each
+    waveform channel's last block is short), so a window's item comes from
+    the items' running window counts. (The JAX stream predict divides by
+    the block size instead, which picks the wrong item past the first
+    short block of a multichannel waveform.)"""
+    per = ds.windows_per_item
+    per = np.full(len(ds), per) if np.isscalar(per) else np.asarray(per)
+    starts = np.concatenate([[0], np.cumsum(per)])
+    items = np.searchsorted(starts, sel, side="right") - 1
+    rows = [normalize(ds.item(int(i)))[sel[items == i] - starts[i]]
+            for i in np.unique(items)]
+    return np.concatenate(rows, axis=0)  # sel is sorted: aligned
+
+
+def _predict_stream(config) -> Dict:
+    """`loadmode = stream` inference (see the module docstring)."""
+    ds = _stream_dataset(config)
+    m = ds.n_windows
+    print(f"Dataset has {m} samples (stream).")
+    savepath = config.savepath_exp
+    batch = int(getattr(config, "batch_size_predict", None) or PREDICT_BATCH)
+    loader = _stream_loader_factory(config, ds, batch)()
+    model = load_aec_params(config, make_model(config))
+    # one read of the wire drives both directions
+    xr_wire = wire_dtype(getattr(config, "stream_transfer_dtype", None)
+                         or None)
+    dec = config.model == "DEC"
+
+    @torch.no_grad()
+    def step(x):
+        x = dequant_wire(x)
+        if dec:
+            q, xr, z = model(x)
+            first = torch.round(q, decimals=5)
+        else:
+            xr, z = model(x)
+            first = torch.mean((xr - x) ** 2, dim=(1, 2, 3))
+        return first, quantize_tensor(xr, xr_wire), z
+
+    xr_path = os.path.join(savepath, "Xr_DEC.npy" if dec else "Xr_AEC.npy")
+    firsts, zs = [], []
+    xr_mm, xr_off, seen = None, 0, 0
+    # fetch batch i - 4 while the later ones are still in flight, so the
+    # device does not idle on the copy back; the reconstructions are as
+    # large as the dataset and are not held on the device
+    inflight: deque = deque()
+
+    def materialize(item):
+        nonlocal xr_mm, xr_off
+        (first, xr, z), take = item
+        firsts.append(first[:take].cpu().numpy())
+        zs.append(z[:take].cpu().numpy())
+        block = _to_nchw_np(dequant_wire(
+            {k: v[:take].cpu() for k, v in xr.items()}
+            if isinstance(xr, dict) else xr[:take].cpu()))
+        if xr_mm is None:
+            xr_mm = np.lib.format.open_memmap(
+                xr_path, mode="w+", dtype=np.float32,
+                shape=(m, *block.shape[1:]))
+        xr_mm[xr_off:xr_off + take] = block
+        xr_off += take
+
+    for x, n_valid in loader:
+        take = min(n_valid, m - seen)
+        seen += take
+        inflight.append((step(x), take))
+        if len(inflight) > 4:
+            materialize(inflight.popleft())
+    while inflight:
+        materialize(inflight.popleft())
+    z_np = np.concatenate(zs, axis=0)
+    xr_mm.flush()
+
+    if dec:
+        q_np = np.concatenate(firsts, axis=0)
+        labels_np = q_np.argmax(axis=1).astype(np.int32)
+        centroids_np = model.clustering.weights.detach().cpu().numpy()
+        save_labels(labels_np, savepath)
+        np.save(os.path.join(savepath, "q_DEC"), q_np)
+        np.save(os.path.join(savepath, "Z_DEC"), z_np)
+        np.save(os.path.join(savepath, "labels_DEC"), labels_np)
+        np.save(os.path.join(savepath, "centroids_DEC"), centroids_np)
+        cap = int(getattr(config, "silh_max_samples", None) or 20000)
+        sel = np.sort(np.random.default_rng(2009).choice(
+            m, min(cap, m), replace=False))
+        x_sub = _read_windows(ds, sel, _np_normalizer(config))
+        metrics = _cluster.cluster_metrics(
+            savepath, labels_np[sel], np.moveaxis(x_sub, -1, 1), z_np[sel],
+            device=resolve_device(getattr(config, "device", None)),
+        )
+        return {
+            "q": q_np, "z": z_np, "labels": labels_np,
+            "centroids": centroids_np, "metrics": metrics,
+        }
+
+    per = np.concatenate(firsts, axis=0)
+    total_loss = float(per.astype(np.float64).mean())
+    print(f"Dataset MSE = {total_loss:.4e}")
+    with open(os.path.join(savepath, "MSE.txt"), "w") as f:
+        f.write(f"MSE = {total_loss:.4e}")
+    np.save(os.path.join(savepath, "Loss_AEC"), total_loss)
+    np.save(os.path.join(savepath, "Z_AEC"), z_np)
+    # x_rec is the on-disk memmap: loading it would defeat the stream
+    return {"z": z_np, "x_rec": xr_mm, "loss": total_loss}

@@ -1,7 +1,9 @@
 """Workflow: hyperparameter-sweep training, AEC pretrain or DEC refine
 (counterpart of the JAX package's `workflow/train.py`; reference
-Cluster/production.py:109-181, models.py:736-1268), `loadmode = ram`, one
-device:
+Cluster/production.py:109-181, models.py:736-1268), one device, with
+`loadmode = ram` (the windows on the device) or `stream` (`_train_stream`:
+items of a Zarr cube or a raw waveform through `data.prefetch.
+PrefetchLoader`, `stream_transfer_dtype` the wire, same artifacts):
 
 - the cartesian hp sweep with per-run dirs `Run_<hp-string>/` and `tmp/`;
 - AEC: MSE + Adam with early stopping; artifacts `AEC_history.csv`,
@@ -16,8 +18,8 @@ device:
 Checkpoints are `.pt` files of the reference state_dict
 (`train/checkpoint.py`). Not ported, each raising `NotImplementedError`:
 figures (the AEC reconstruction panel, DEC's snapshot figures; ROADMAP
-Queue 1 item 9), TensorBoard (`tb = True`, item 15), `loadmode = stream`
-(item 7) and a mesh (item 11).
+Queue 1 item 9), TensorBoard (`tb = True`, item 15), the H5 stream source
+(item 14) and a mesh (item 11).
 """
 
 from __future__ import annotations
@@ -42,7 +44,10 @@ from spectrogram_cube_clustering_tpu_torch.train.checkpoint import (
     save,
 )
 from spectrogram_cube_clustering_tpu_torch.utils.history import save_history
-from spectrogram_cube_clustering_tpu_torch.workflow.data import load_data
+from spectrogram_cube_clustering_tpu_torch.workflow.data import (
+    _cube_spec,
+    load_data,
+)
 
 
 def make_model(
@@ -105,10 +110,6 @@ def check_not_ported(config, mesh=None) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "a mesh is not ported yet: ROADMAP Queue 1 item 11 (multi-GPU)")
-    if getattr(config, "loadmode", None) == "stream":
-        raise NotImplementedError(
-            "loadmode='stream' is not ported yet: ROADMAP Queue 1 item 7 "
-            "(streaming tier)")
     if getattr(config, "tb", False):
         raise NotImplementedError(
             "tb=True is not ported: TensorBoard is ROADMAP Queue 1 item 15; "
@@ -224,6 +225,8 @@ def train(config, mesh=None):
     check_not_ported(config, mesh)
     if config.model == "DEC" and getattr(config, "figures", False):
         raise _figures_not_ported("figures=True (DEC training snapshots)")
+    if getattr(config, "loadmode", None) == "stream":
+        return _train_stream(config)
     tra_x, val_x = load_data(config)
     tra_x = _normalize(config, tra_x)
     val_x = _normalize(config, val_x)
@@ -296,6 +299,37 @@ def _save_dec_artifacts(config, out) -> None:
         )
 
 
+def _dec_initial(config, n_clusters: int):
+    """With `init = load`, the GMM run's (labels, centroids), its
+    provenance recorded in this run's dir; else None."""
+    if getattr(config, "init", "gmm") != "load":
+        return None
+    gmm_dir = _gmm_artifacts_dir(config, n_clusters)
+    initial = (
+        np.load(os.path.join(gmm_dir, "labels.npy")),
+        np.load(os.path.join(gmm_dir, "centroids.npy")),
+    )
+    _record_gmm_provenance(config, n_clusters, gmm_dir)
+    return initial
+
+
+def _dec_config(config, hp, n_clusters: int):
+    return _train.DECConfig(
+        n_clusters=n_clusters,
+        n_epochs=int(config.n_epochs),
+        gamma=float(hp.get("gamma", 0.001)),
+        tol=float(hp.get("tol", 0.003)),
+        update_interval=int(getattr(config, "update_interval", -1)),
+        init=getattr(config, "init", "gmm"),
+        kmeans_n_init=int(getattr(config, "km_n_init", 100)),
+        kmeans_max_iter=int(getattr(config, "km_max_iter", 1000)),
+        # the seed of gmm_fit: init='gmm' here and a prior gmm_fit give
+        # the same initialization
+        seed=int(getattr(config, "seed", 2009) or 2009),
+        verbose=bool(getattr(config, "show", False)),
+    )
+
+
 def _train_dec_run(config, hp, tra_x):
     batch_size, lr = int(hp["batch_size"]), float(hp["lr"])
     n_clusters = int(hp.get("n_clusters", getattr(config, "n_clusters", 5)))
@@ -305,36 +339,137 @@ def _train_dec_run(config, hp, tra_x):
     load_aec_params(config, model)
     state = _train.create_train_state(model, lr)
 
-    init_mode = getattr(config, "init", "gmm")
-    initial = None
-    if init_mode == "load":
-        gmm_dir = _gmm_artifacts_dir(config, n_clusters)
-        initial = (
-            np.load(os.path.join(gmm_dir, "labels.npy")),
-            np.load(os.path.join(gmm_dir, "centroids.npy")),
-        )
-        _record_gmm_provenance(config, n_clusters, gmm_dir)
-
     out = _train.train_dec(
-        model, state, data,
-        _train.DECConfig(
-            n_clusters=n_clusters,
-            n_epochs=int(config.n_epochs),
-            gamma=float(hp.get("gamma", 0.001)),
-            tol=float(hp.get("tol", 0.003)),
-            update_interval=int(getattr(config, "update_interval", -1)),
-            init=init_mode,
-            kmeans_n_init=int(getattr(config, "km_n_init", 100)),
-            kmeans_max_iter=int(getattr(config, "km_max_iter", 1000)),
-            # the seed of gmm_fit: init='gmm' here and a prior gmm_fit
-            # give the same initialization
-            seed=int(getattr(config, "seed", 2009) or 2009),
-            verbose=bool(getattr(config, "show", False)),
-        ),
-        initial=initial,
+        model, state, data, _dec_config(config, hp, n_clusters),
+        initial=_dec_initial(config, n_clusters),
         snapshot_path=os.path.join(config.savepath_chkpnt, "SNAPSHOT"),
         resume=bool(getattr(config, "resume", False)),
     )
     _save_dec_artifacts(config, out)
     out["savepath_run"] = config.savepath_run
     return out
+
+
+# ------------------------------------------------------- loadmode = stream
+
+
+def _np_normalizer(config):
+    """Host-side per-window normalizer over (n, H, W, 1) stacks for the
+    streaming items (the semantics of `ops.normalize`)."""
+    name = getattr(config, "transform", None)
+    if name is None:
+        return lambda x: x
+    from spectrogram_cube_clustering_tpu_torch.data.h5 import (
+        normalize_specgram,
+    )
+
+    def fn(x):  # stats over (H, W)
+        return normalize_specgram(
+            np.moveaxis(x, -1, 1), name
+        ).transpose(0, 2, 3, 1).astype(np.float32)
+
+    return fn
+
+
+def _stream_dataset(config):
+    """The item source of `loadmode = stream`: the Zarr cube (default) or
+    a memory-mapped raw waveform (`datafiletype = waveform`, host STFT per
+    block). Sets `config.input_hw` for `make_model`."""
+    from spectrogram_cube_clustering_tpu_torch.data import (
+        WaveformStreamDataset,
+        ZarrCubeDataset,
+    )
+
+    ftype = getattr(config, "datafiletype", None) or "zarr"
+    if ftype == "h5":
+        raise NotImplementedError(
+            "the H5 stream source is not ported: it needs h5py, which the "
+            "port does not use (ROADMAP Queue 1 item 14, H5 catalog)")
+    if ftype == "waveform":
+        ds = WaveformStreamDataset(
+            config.fname_dataset,
+            nperseg=int(getattr(config, "nperseg", None) or 200),
+            hop=int(getattr(config, "hop", None) or 100),
+            window_rows=int(getattr(config, "window_rows", None) or 4),
+            block=int(getattr(config, "waveform_stream_block", None) or 256),
+        )
+    elif ftype == "zarr":
+        ds = ZarrCubeDataset(config.fname_dataset, spec=_cube_spec(config))
+    else:
+        raise ValueError(f"unknown datafiletype {ftype!r}")
+    config.input_hw = tuple(int(v) for v in ds.window_shape[:2])
+    return ds
+
+
+def _stream_loader_factory(config, ds, batch_size: int):
+    """make_loader(indices=None) -> a `PrefetchLoader` over the dataset's
+    normalized items on `config.device`, with the configured workers and
+    wire (`stream_transfer_dtype`)."""
+    from spectrogram_cube_clustering_tpu_torch.data import PrefetchLoader
+
+    normalize = _np_normalizer(config)
+    device = resolve_device(getattr(config, "device", None))
+
+    def make_loader(indices=None):
+        return PrefetchLoader(
+            lambda i: normalize(ds.item(i)), len(ds), batch_size,
+            num_workers=int(getattr(config, "workers", None) or 4),
+            indices=indices,
+            transfer_dtype=getattr(config, "stream_transfer_dtype", None)
+            or None,
+            device=device,
+        )
+
+    return make_loader
+
+
+def _train_stream(config):
+    """`loadmode = stream`: the windows never sit in memory at once; items
+    stream through the prefetch loader into one step per batch. Artifacts
+    as the ram path's."""
+    from spectrogram_cube_clustering_tpu_torch.data import train_val_split
+
+    ds = _stream_dataset(config)
+    print(f"Dataset has {ds.n_windows} samples (stream).")
+    results = []
+    for run_count, hp in enumerate(config.sweep(), start=1):
+        print("-" * 80)
+        print(f"Hyperparameter Tuning Run {run_count}/{config.runs} "
+              f"(stream): {hp}")
+        config.init_output_env(**hp)
+        batch_size, lr = int(hp["batch_size"]), float(hp["lr"])
+        make_loader = _stream_loader_factory(config, ds, batch_size)
+        snapshot = os.path.join(config.savepath_chkpnt, "SNAPSHOT")
+        resume = bool(getattr(config, "resume", False))
+        if config.model == "AEC":
+            idx_tra, idx_val = train_val_split(len(ds))
+            model = _seeded_model(config)
+            out = _train.train_aec_stream(
+                model, _train.create_train_state(model, lr),
+                lambda: make_loader(list(idx_tra)),
+                _train.AECConfig(
+                    n_epochs=int(config.n_epochs),
+                    early_stopping=bool(getattr(config, "early_stopping",
+                                                True)),
+                    patience=int(getattr(config, "patience", 10)),
+                    verbose=bool(getattr(config, "show", False)),
+                ),
+                make_val_loader=lambda: make_loader(list(idx_val)),
+                snapshot_path=snapshot, resume=resume,
+            )
+            _save_aec_artifacts(config, out)
+        else:
+            n_clusters = int(hp.get("n_clusters",
+                                    getattr(config, "n_clusters", 5)))
+            model = _seeded_model(config, n_clusters=n_clusters)
+            load_aec_params(config, model)
+            initial = _dec_initial(config, n_clusters)
+            out = _train.train_dec_stream(
+                model, _train.create_train_state(model, lr), make_loader,
+                ds.n_windows, _dec_config(config, hp, n_clusters),
+                initial=initial, snapshot_path=snapshot, resume=resume,
+            )
+            _save_dec_artifacts(config, out)
+        out["savepath_run"] = config.savepath_run
+        results.append(out)
+    return results

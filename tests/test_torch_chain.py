@@ -31,9 +31,9 @@ CHUNK = 128  # rows per Zarr item: 32 windows of 4 frames
 SEED = 1
 
 
-def _chain(root, source, run_dc, writer, weights_name):
-    """Run the five stages under `root`; returns the final DEC labels and
-    every stage's artifact names."""
+def _chain(root, source, run_dc, writer, weights_name, extra=None):
+    """Run the five stages under `root`, each with the `extra` ini keys;
+    returns the final DEC labels and every stage's artifact names."""
     def run(params, hp=None):
         ini = writer(
             {"fname_dataset": source["path"],
@@ -41,7 +41,7 @@ def _chain(root, source, run_dc, writer, weights_name):
              "configpath": os.path.join(root, "Config"),
              "transform": "sample_norm_cent", **source["keys"]},
             {"tb": "False", "show": "False", "figures": "False",
-             "device": "cpu", "seed": SEED, **params}, hp)
+             "device": "cpu", "seed": SEED, **params, **(extra or {})}, hp)
         return run_dc(init_path=ini)
 
     def run_dir(cfg):
@@ -73,8 +73,9 @@ def _chain(root, source, run_dc, writer, weights_name):
     return np.load(os.path.join(pred, "labels_DEC.npy")), names
 
 
-@pytest.mark.parametrize("source", ["zarr", "waveform"])
-def test_run_dc_chain_matches_jax(tmp_path, source):
+def _source(tmp_path, source):
+    """The Zarr cube (built by the port's `build-cube`) or the waveform
+    `.npy` of 256 windows, and the planted kind of each window."""
     if source == "zarr":
         # 8 channels x 70,500 samples -> 704 frames, whose usable 2/11
         # are one 128-row item per channel
@@ -92,6 +93,21 @@ def test_run_dc_chain_matches_jax(tmp_path, source):
         src = {"path": str(tmp_path / "wave.npy"),
                "keys": {"datafiletype": "waveform"}}
     assert len(kinds) == 256
+    return src, kinds
+
+
+def _same_names(mine_names, theirs_names):
+    """The JAX artifact tree, orbax directories as `.pt` files, no
+    figures."""
+    for stage, want in theirs_names.items():
+        want = {n if n in ("tmp", "GMM", "Prediction") or "." in n
+                else f"{n}.pt" for n in want if not n.endswith(".png")}
+        assert set(mine_names[stage]) == want, stage
+
+
+@pytest.mark.parametrize("source", ["zarr", "waveform"])
+def test_run_dc_chain_matches_jax(tmp_path, source):
+    src, kinds = _source(tmp_path, source)
     mine, mine_names = _chain(str(tmp_path / "port"), src, cli.run_dc,
                               config_training, lambda n: f"{n}.pt")
     theirs, theirs_names = _chain(str(tmp_path / "jax"), src, jcli.run_dc,
@@ -99,8 +115,4 @@ def test_run_dc_chain_matches_jax(tmp_path, source):
     assert nmi(mine, theirs) >= 0.99
     assert nmi(kinds, mine) >= 0.99
     assert nmi(kinds, theirs) >= 0.99
-    # the JAX artifact tree, orbax directories as `.pt` files, no figures
-    for stage, want in theirs_names.items():
-        want = {n if n in ("tmp", "GMM", "Prediction") or "." in n
-                else f"{n}.pt" for n in want if not n.endswith(".png")}
-        assert set(mine_names[stage]) == want, stage
+    _same_names(mine_names, theirs_names)

@@ -302,7 +302,7 @@ def test_run_dc_argv_and_checks(tmp_path, cube, capsys):
     ({"figures": "True"}, "item 9"),
     ({"tb": "True"}, "item 15"),
     ({"km_metrics": "True"}, "item 16"),
-    ({"loadmode": "stream"}, "item 7"),
+    ({"loadmode": "stream", "datafiletype": "h5"}, "item 14"),
     ({"datafiletype": "h5"}, "item 14"),
     ({"arch": "packed"}, "item 8"),
 ])

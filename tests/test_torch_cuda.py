@@ -684,3 +684,119 @@ def test_layout_cuda_input_never_takes_the_plain_version(cuda_device,
         stl.stft_layout_cuda(x.double())
     with pytest.raises(ValueError, match="contiguous"):
         stl.stft_layout_cuda(x[::2])
+
+
+# ---- K4's passthrough, redesigned: tiles staged in shared memory ------------
+
+
+@pytest.mark.parametrize("b,t,hop,ratio,lanes,rows", [
+    (1, 30_099, 100, 2, 128, 512),   # ragged T
+    (3, 12_345, 100, 2, 128, 125),   # T % 4 = 1: later rows unaligned
+    (2, 50_002, 100, 1, 128, 500),   # ratio 1
+    (1, 60_000, 100, 3, 128, 599),   # ratio 3
+    (2, 9_999, 100, 2, 100, 101),    # lanes == hop
+    (3, 20_001, 30, 3, 33, 700),     # scalar stores
+])
+def test_passthrough_tiles_are_bit_equal(cuda_device, b, t, hop, ratio,
+                                         lanes, rows):
+    x = _randn((b, t), cuda_device, seed=t)
+    got = stv.passthrough_cuda(x, hop, ratio, rows, lanes)
+    assert torch.equal(got, stv.passthrough_plain(x, hop, ratio, rows, lanes))
+
+
+def test_passthrough_of_no_samples_is_zeros(cuda_device):
+    """T = 0: every tile stages zeros, as the plain version pads."""
+    x = torch.empty((2, 0), device=cuda_device)
+    got = stv.passthrough_cuda(x, 100, 2, 3, 128)
+    assert torch.equal(got, stv.passthrough_plain(x, 100, 2, 3, 128))
+    assert not got.any()
+
+
+def test_passthrough_out_of_range_raises_before_launch(cuda_device):
+    x = _randn((1, 1_000), cuda_device)
+    before = stv.LAUNCHES.get(stv.PASSTHROUGH, 0)
+    for kw in (dict(rows=2**24), dict(hop=1_000, lanes=1_024, rows=2)):
+        with pytest.raises(ValueError):
+            stv.passthrough_cuda(x, **kw)
+    assert stv.LAUNCHES.get(stv.PASSTHROUGH, 0) == before
+
+
+# ---- the streaming tier on the card ------------------------------------------
+
+
+def _tagged(i):
+    return np.full((3, 2, 4, 1), float(i) + 0.3, np.float32)
+
+
+@pytest.mark.parametrize("wire", [None, "bfloat16", "int8"])
+def test_prefetch_loader_on_card_matches_cpu(cuda_device, wire):
+    """Pinned buffers and the side-stream copy give the CPU loader's
+    batches, on the card, in order, the last one padded."""
+    from spectrogram_cube_clustering_tpu_torch import data
+    from spectrogram_cube_clustering_tpu_torch.core import dequant_wire
+
+    got, want = ([(dequant_wire(b), n) for b, n in data.PrefetchLoader(
+        _tagged, 7, 4, num_workers=3, transfer_dtype=wire, device=dev)]
+        for dev in (cuda_device, "cpu"))
+    assert [n for _, n in got] == [n for _, n in want] == [4] * 5 + [1]
+    for (g, _), (w, _) in zip(got, want):
+        assert g.device.type == torch.device(cuda_device).type
+        assert torch.equal(g.cpu(), w)
+
+
+def test_stream_aec_and_dec_on_card_match_cpu(cuda_device):
+    """A stream AEC epoch and a stream DEC epoch with a refresh from the
+    same weights: losses within rtol 1e-3 (cuDNN against CPU convs, both
+    float32 with TF32 off), DEC labels equal where the top-two gap
+    exceeds 1e-4."""
+    from spectrogram_cube_clustering_tpu_torch import data
+
+    x = _tone_windows(384).numpy()
+
+    def loader(dev):
+        return lambda: data.PrefetchLoader(
+            lambda i: x[i * 32:(i + 1) * 32], 12, 64, num_workers=2,
+            device=dev)
+
+    sd = _dec(2).state_dict()
+    hist, labels = [], []
+    for dev in ("cpu", cuda_device):
+        aec = models.AEC(device=dev)
+        aec.load_state_dict({k: v for k, v in sd.items()
+                             if k != "clustering.weights"})
+        a = train.train_aec_stream(
+            aec, train.create_train_state(aec, 1e-3), loader(dev),
+            train.AECConfig(n_epochs=1))
+        dec = models.DEC(5, device=dev)
+        dec.load_state_dict(sd)
+        d = train.train_dec_stream(
+            dec, train.create_train_state(dec, 1e-3), loader(dev), len(x),
+            train.DECConfig(n_clusters=5, n_epochs=1, tol=0.0, init="rand"))
+        hist.append(a["history"]["train"] + d["history"]["total"])
+        labels.append(d["labels"])
+    assert not any(tf32_flags().values())
+    np.testing.assert_allclose(hist[1], hist[0], rtol=1e-3)
+    _, teval = train.make_stream_fns(dec.cpu(), 0.001)
+    q = train.full_eval_stream(teval, loader("cpu"), len(x))[0]
+    top2 = np.sort(q, axis=1)[:, -2:]
+    clear = top2[:, 1] - top2[:, 0] > 1e-4
+    np.testing.assert_array_equal(labels[1][clear], labels[0][clear])
+
+
+@pytest.mark.parametrize("wire", ["bfloat16", "int8"])
+def test_predictor_over_a_wire_on_card_matches_cpu(cuda_device, wire):
+    """The same wire on both sides restores the same float32 windows: the
+    card's answers within the predictor test's rtol 1e-4 / atol 1e-5, for
+    windows and for the fused waveform route."""
+    sd = _dec(3).state_dict()
+    x = _randn((300, 4, 101, 1), torch.device("cpu"), seed=4).numpy()
+    wave = _randn((2, 20_000), torch.device("cpu"), seed=5).numpy()
+    got, want = (serve.DECPredictor(sd, 5, max_batch=128, buckets=True,
+                                    transfer_dtype=wire, device=dev)
+                 for dev in (cuda_device, "cpu"))
+    a, b = got(x), want(x)
+    np.testing.assert_allclose(a["q"], b["q"], rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(a["z"], b["z"], rtol=1e-4, atol=1e-5)
+    a = serve.WaveformFrontend(got, chunk_samples=8_000)(wave)
+    b = serve.WaveformFrontend(want, chunk_samples=8_000)(wave)
+    np.testing.assert_allclose(a["q"], b["q"], rtol=1e-4, atol=1e-5)

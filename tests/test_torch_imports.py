@@ -1,8 +1,8 @@
 """Import isolation of the port: every module of
 `spectrogram_cube_clustering_tpu_torch` (the CLI included) and
 `chip_smoke.py` import in a process where jax, flax, optax, orbax,
-pandas, matplotlib, sklearn, h5py, tensorboard and the JAX package cannot
-be imported. That pins both rules: the port never touches the JAX
+pandas, matplotlib, sklearn, h5py, tensorboard, ml_dtypes and the JAX
+package cannot be imported. That pins both rules: the port never touches the JAX
 package, and it runs with what the card's machine has (torch, numpy,
 scipy, einops, triton, the CUDA toolkit).
 """
@@ -14,7 +14,8 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "pandas", "matplotlib",
-           "sklearn", "h5py", "tensorboard", "spectrogram_cube_clustering_tpu")
+           "sklearn", "h5py", "tensorboard", "ml_dtypes",
+           "spectrogram_cube_clustering_tpu")
 
 CODE = f"""
 import importlib, importlib.abc, pkgutil, sys
@@ -43,7 +44,9 @@ for sub in ("cli", "cli.run_dc", "cli.drivers", "cli.tools",
             "experiments.stft_isolate", "experiments.stft_decompose",
             "experiments.stft_rawread", "experiments.stft_outslice",
             "experiments.stft_fusedbasis", "experiments.stft_loose_precision",
-            "ops.cuda_stft_variants", "ops.cuda_stft_layout"):
+            "ops.cuda_stft_variants", "ops.cuda_stft_layout",
+            "core.precision", "data.synthetic", "data.h5", "data.waveform",
+            "data.prefetch"):
     assert pkg.__name__ + "." + sub in names, sub
 import chip_smoke  # noqa: F401
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)

@@ -151,12 +151,15 @@ def test_frontend_refuses_what_jax_refuses(predictors):
 
 def test_options_not_ported_raise(trained):
     _, sd, _ = trained
-    for kw in ({"mesh": object()}, {"transfer_dtype": "bfloat16"},
-               {"transfer_dtype": "int8"}, {"arch": "packed"}):
+    for kw in ({"mesh": object()}, {"arch": "packed"}):
         with pytest.raises(NotImplementedError, match="not ported"):
             serve.DECPredictor(sd, 3, device="cpu", **kw)
         with pytest.raises(NotImplementedError, match="not ported"):
             serve.AECEncoder(sd, device="cpu", **kw)
+    # the wire dtypes are ported (tests/test_torch_wire.py); an unknown
+    # one is refused as by the JAX predictors
+    with pytest.raises(ValueError, match="transfer_dtype"):
+        serve.DECPredictor(sd, 3, device="cpu", transfer_dtype="int4")
     with pytest.raises(ValueError, match="unknown arch"):
         serve.DECPredictor(sd, 3, arch="UNet", device="cpu")
     with pytest.raises(ValueError, match="exceeds max_batch"):

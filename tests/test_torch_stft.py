@@ -194,7 +194,7 @@ SASS_LISTING = textwrap.dedent("""
             /*0b20*/                   HMMA.16816.F32.BF16 R8, R16, R2, R8 ;
             /*0b30*/                   HMMA.1688.F32.TF32 R8, R16, R2, R8 ;
             /*0b40*/                   FADD R8, R8, R9 ;
-            Function : _ZN12_GLOBAL__N_118passthrough_kernelEPKfPflliiil
+            Function : _ZN12_GLOBAL__N_118passthrough_kernelILb1EEEvPKfPfiiiiii
             /*0010*/                   FADD R1, R2, R3 ;
     """)
 
@@ -205,7 +205,7 @@ def test_dmma_counts_reads_a_sass_listing():
     assert _build.opcode_counts(SASS_LISTING, "DMMA") == {
         "_ZN12_GLOBAL__N_115stft_f32_kernelILi0EEEvN7scc_mma4ArgsIfEE": 2,
         "_ZN12_GLOBAL__N_116stft_hmma_kernelILi1ELi0EEEvN7scc_mma4ArgsIfEE": 0,
-        "_ZN12_GLOBAL__N_118passthrough_kernelEPKfPflliiil": 0,
+        "_ZN12_GLOBAL__N_118passthrough_kernelILb1EEEvPKfPfiiiiii": 0,
     }
 
 

@@ -279,6 +279,10 @@ def test_make_model_matches_jax(model, hw, faithful):
 
 
 def _not_ported_calls():
+    from spectrogram_cube_clustering_tpu_torch.workflow.train import (
+        _stream_dataset,
+    )
+
     x = np.zeros((4, 4, 101, 1), np.float32)
 
     def windows(**kw):
@@ -293,8 +297,9 @@ def _not_ported_calls():
         "layout_mesh": (lambda: train.make_batched_data(x, 2, mesh=object()),
                         "item 11"),
         "h5": (lambda: windows(datafiletype="h5"), "item 14"),
-        "stream": (lambda: windows(datafiletype="waveform",
-                                   loadmode="stream"), "item 7"),
+        "stream": (lambda: _stream_dataset(
+            types.SimpleNamespace(datafiletype="h5", loadmode="stream",
+                                  fname_dataset="unused.h5")), "item 14"),
         "packed": (lambda: model(arch="packed"), "item 8"),
         "unet": (lambda: model(arch="UNet"), "item 8"),
         "bf16": (lambda: model(precision="bf16"), "float32 only"),
