@@ -71,6 +71,28 @@ the script exits non-zero:
    those tests' bounds.
    Prints stage walls, the loader's windows/s to the card per wire, and
    each stage's peak device memory;
+4h. architectures: from 4c's (16, 2^20) waveform (`datafiletype =
+   waveform`, K1 at the head of every stage, not built again), at each
+   model's full width: `arch = packed` through the five stages (NMI >=
+   0.90 against the kinds) and a /predict_waveform of 400,000 samples
+   over HTTP to the trained packed DEC, q within 1e-5 of the same
+   predictor fed the plain STFT's windows on the card; `arch = UNet`
+   through AEC train and predict (finite decreasing losses, 16-d
+   latents; on a 2,048-window slice from the same seeded weights, the
+   first batch's gradients and the validation loss on the card within
+   rtol 1e-5 of the CPU's, and one epoch's [train, validation] losses
+   within rtol 1e-3 / 1e-2, with the card's own run-to-run spread beside
+   them, under its default and its deterministic cuDNN algorithms); the
+   five stages with `precision = bf16` (NMI >= 0.90; the AEC stage's
+   first epoch, its training windows from its seeded weights, in bf16 on
+   the card within rtol 5e-3 of the same on the CPU, and its gap to
+   float32 within 1e-2 of the JAX package's gap on the same epoch,
+   `JAX_BF16_GAP`, which `tools/bf16_reference_gap.py` computes from
+   what `--save-bf16-inputs PATH` writes). K1 must launch in the phase's
+   run. Prints each run's stage walls and peak device memory, the bf16
+   run's AEC losses beside 4c's float32 ones, and the train samples/s of
+   one AEC epoch of the parity AEC, the packed AEC, the UNet and the
+   parity AEC under bf16 on the same 41,936 windows;
 4d. variants: the STFT precision and interior kernels
    (`csrc/stft_variants.cu`) through their entry points: K1's
    `precision="default"` (TF32), the folded STFT at HIGHEST, DEFAULT and
@@ -146,6 +168,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+from typing import Optional
 
 import numpy as np
 import torch
@@ -671,13 +694,14 @@ def _files(path: str) -> set:
 
 
 def run_five_stages(root: str, universal: dict, card: str, name: str,
-                    extra=None):
+                    extra=None, dec: bool = True):
     """AEC train, AEC predict, GMM fit, DEC train (init=load) and DEC
-    predict, each through the port's `cli.run_dc` with the card as the
-    default device and the `extra` ini keys; checks every stage's artifact
-    names. Returns the DEC predict directory, the stage walls, the
-    `load_data` read seconds and each stage's peak device memory above
-    what was allocated when it started."""
+    predict (with `dec=False` the two AEC stages only), each through the
+    port's `cli.run_dc` with the card as the default device and the
+    `extra` ini keys; checks every stage's artifact names. Returns each
+    stage's directory, the stage walls, the `load_data` read seconds and
+    each stage's peak device memory above what was allocated when it
+    started."""
     from spectrogram_cube_clustering_tpu_torch import cli
     from spectrogram_cube_clustering_tpu_torch.utils import config_training
 
@@ -713,21 +737,10 @@ def run_five_stages(root: str, universal: dict, card: str, name: str,
     weights = os.path.join(aec, "AEC_Params_Final.pt")
     run("aec_predict", {"model": "AEC", "mode": "predict",
                         "saved_weights": weights})
-    run("gmm_fit", {"model": "GMM", "mode": "fit", "saved_weights": weights,
-                    "km_n_init": 100, "km_max_iter": 1000},
-        {"n_clusters": "5"})
-    dec = run_dir(run("dec_train", {"model": "DEC", "mode": "train",
-                                    "n_epochs": 2, "saved_weights": weights,
-                                    "init": "load"},
-                      {"batch_size": "64", "lr": "0.0005", "n_clusters": "5",
-                       "gamma": "0.001", "tol": "0.003"}))
-    run("dec_predict", {"model": "DEC", "mode": "predict",
-                        "saved_weights": os.path.join(dec,
-                                                      "DEC_Params_Final.pt")})
     trees = {"aec_train": aec, "aec_tmp": os.path.join(aec, "tmp"),
-             "aec_predict": os.path.join(aec, "Prediction"),
-             "gmm_fit": os.path.join(aec, "GMM", "n_clusters=5"),
-             "dec_train": dec, "dec_predict": os.path.join(dec, "Prediction")}
+             "aec_predict": os.path.join(aec, "Prediction")}
+    if dec:
+        trees.update(_dec_stages(run, run_dir, aec, weights))
     want = dict(STAGE_FILES)
     if (extra or {}).get("loadmode") == "stream":
         want["aec_tmp"] = {"SNAPSHOT"}  # the stream loop keeps no best epoch
@@ -744,7 +757,25 @@ def run_five_stages(root: str, universal: dict, card: str, name: str,
           f"memory above the stage's start (torch.cuda."
           f"max_memory_allocated) {peaks} bytes",
           flush=True)
-    return trees["dec_predict"], walls, reads, peaks
+    return trees, walls, reads, peaks
+
+
+def _dec_stages(run, run_dir, aec: str, weights: str) -> dict:
+    """GMM fit, DEC train and DEC predict of `run_five_stages`; returns
+    their directories."""
+    run("gmm_fit", {"model": "GMM", "mode": "fit", "saved_weights": weights,
+                    "km_n_init": 100, "km_max_iter": 1000},
+        {"n_clusters": "5"})
+    dec = run_dir(run("dec_train", {"model": "DEC", "mode": "train",
+                                    "n_epochs": 2, "saved_weights": weights,
+                                    "init": "load"},
+                      {"batch_size": "64", "lr": "0.0005", "n_clusters": "5",
+                       "gamma": "0.001", "tol": "0.003"}))
+    run("dec_predict", {"model": "DEC", "mode": "predict",
+                        "saved_weights": os.path.join(dec,
+                                                      "DEC_Params_Final.pt")})
+    return {"gmm_fit": os.path.join(aec, "GMM", "n_clusters=5"),
+            "dec_train": dec, "dec_predict": os.path.join(dec, "Prediction")}
 
 
 def check_dec_predict(pred: str, truth: np.ndarray, name: str) -> float:
@@ -819,7 +850,7 @@ def phase_workflow(device, gen, card, cuda_stft, spectrogram_plain,
         # item i is channel i, rows 0..5755: window w holds kind [i, w]
         kinds[:, :1439].reshape(-1).cpu().numpy())
     pred = run_five_stages(f"{tmp}/A", sources["zarr"][0], card,
-                           "zarr")[0]
+                           "zarr")[0]["dec_predict"]
     check_dec_predict(pred, sources["zarr"][1], "zarr")
 
     # source B: the raw (16, 2^20) waveform
@@ -836,7 +867,7 @@ def phase_workflow(device, gen, card, cuda_stft, spectrogram_plain,
         kinds[:, :per_channel].reshape(-1).cpu().numpy())
     cuda_stft.LAUNCHES = 0  # the waveform stages' run starts here
     pred = run_five_stages(f"{tmp}/B", sources["waveform"][0], card,
-                           "waveform")[0]
+                           "waveform")[0]["dec_predict"]
     wave_launches = cuda_stft.LAUNCHES  # ... and ends here
     print(f"workflow waveform: STFT kernel launches {wave_launches}",
           flush=True)
@@ -940,9 +971,10 @@ def phase_stream(device, card, cuda_stft, tmp: str, sources: dict) -> None:
     cuda_stft.LAUNCHES = 0  # the stream stages' run starts here
     for name, (universal, truth) in sources.items():
         rate = loader_rate(device, universal)
-        preds[name], walls, _, peaks = run_five_stages(
+        trees, walls, _, peaks = run_five_stages(
             f"{tmp}/stream_{name}", universal, card, f"stream {name}",
             STREAM_KEYS)
+        preds[name] = trees["dec_predict"]
         check_dec_predict(preds[name], truth, f"stream {name}")
         print(f"stream {name} on {card}: stage walls "
               f"{ {k: round(v, 3) for k, v in walls.items()} } s; loader "
@@ -1034,6 +1066,300 @@ def phase_stream(device, card, cuda_stft, tmp: str, sources: dict) -> None:
               f"{z_err:.3e}; labels agreeing {same:.4f} over "
               f"{len(answers[None]['q'])} windows", flush=True)
         check(ok, f"{wire} trained DEC serve labels")
+
+
+#: 4h: a bf16 AEC epoch's loss on the card against the same epoch on the
+#: CPU: read 1.97e-3 in every run, while a card that ran float32 instead
+#: would read 3.6e-2 (PERF.md, phase 4h's findings)
+BF16_CARD_RTOL = 5e-3
+#: 4h: the JAX package's own gap, bf16 against float32, of the same epoch
+#: (the same windows in order and the same seeded weights, on the CPU):
+#: `tools/bf16_reference_gap.py` on what `--save-bf16-inputs` writes
+JAX_BF16_GAP = -0.031328320557993394
+#: 4h: how far the card's bf16-vs-float32 gap may lie from JAX's, absolute.
+#: Each package's float32 epoch moves ~1e-3 with its arithmetic order (459
+#: Adam steps): the card's gap read 3.9e-3-5.0e-3 from JAX's, the CPU's
+#: 3.0e-3, while a card that ran float32 instead would read 3.1e-2
+BF16_GAP_ATOL = 1e-2
+#: 4h: the UNet's validation loss of its seeded weights, the card's
+#: against the CPU's (the forward alone, float32, TF32 off), and the
+#: relative norm of the gap between the first batch's gradients
+UNET_FORWARD_RTOL = 1e-5
+UNET_GRAD_RTOL = 1e-5
+#: 4h: one UNet epoch, the card's [train, validation] losses against the
+#: CPU's. Training loss: 4b's rule. The validation loss after the epoch's
+#: 24 Adam steps follows the trajectory, not the arithmetic: with the
+#: forward equal, the card's own two runs differ by 3.6e-4 and a run with
+#: deterministic cuDNN algorithms lies 5.1e-3 from the CPU (PERF.md, 4h)
+UNET_EPOCH_RTOL = (1e-3, 1e-2)
+
+
+def aec_history(run_dir: str) -> list:
+    """The training losses of an AEC run directory's history."""
+    with open(os.path.join(run_dir, "AEC_history.csv")) as f:
+        return [float(r["Training MSE"]) for r in csv.DictReader(f)]
+
+
+def epoch_rates(device, x: torch.Tensor) -> dict:
+    """Train samples/s of one AEC epoch (batch 64, after one untimed
+    epoch) of the parity AEC, the packed AEC and the UNet in float32, and
+    of the parity AEC under bf16, from seeded weights on the card's
+    windows x: host clock around the epoch, synced."""
+    from spectrogram_cube_clustering_tpu_torch import core, models, train
+    from spectrogram_cube_clustering_tpu_torch.train.aec import train_epoch
+
+    data = train.make_batched_data(x, 64)
+    rates = {}
+    for name, cls, policy in (("AEC", models.AEC, core.DEFAULT),
+                              ("packed", models.PackedAEC, core.DEFAULT),
+                              ("UNet", models.UNet, core.DEFAULT),
+                              ("AEC bf16", models.AEC, core.BF16)):
+        model = cls(generator=torch.Generator().manual_seed(0), device=device)
+        state = train.create_train_state(model, 1e-3)
+        train_epoch(state, data, policy)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_epoch(state, data, policy)
+        torch.cuda.synchronize()
+        rates[name] = len(x) / (time.perf_counter() - t0)
+    return rates
+
+
+def save_bf16_inputs(path: str, x: torch.Tensor) -> None:
+    """Write the bf16 epoch's windows and the seeded AEC's weights (seed
+    0, the port's layout) to the .npz `path`, for
+    `tools/bf16_reference_gap.py`."""
+    from spectrogram_cube_clustering_tpu_torch import models
+
+    sd = models.AEC(generator=torch.Generator().manual_seed(0)).state_dict()
+    np.savez(path, windows=x.cpu().numpy(),
+             **{k: v.numpy() for k, v in sd.items()})
+    print(f"bf16 inputs: {tuple(x.shape)} windows and the seeded AEC's "
+          f"weights written to {path}", flush=True)
+
+
+def unet_cpu_vs_card(device, x: torch.Tensor, card: str) -> None:
+    """The UNet from seeded weights on windows x, split 3:1, on the CPU
+    and the card: the first batch's gradients and the validation loss
+    (the forward alone), then one epoch (batch 64) on the CPU once and on
+    the card twice with its default cuDNN algorithms and twice with
+    deterministic ones. Gates the gradients and the forward within
+    UNET_GRAD_RTOL and UNET_FORWARD_RTOL, and the first default run's
+    [train, validation] losses within UNET_EPOCH_RTOL of the CPU's;
+    prints each run's gaps to the CPU and the card's own run-to-run
+    spread."""
+    from spectrogram_cube_clustering_tpu_torch import models, train
+    from spectrogram_cube_clustering_tpu_torch.train.aec import eval_epoch
+
+    split = len(x) * 3 // 4
+    sd = models.UNet(generator=torch.Generator().manual_seed(3)).state_dict()
+    grads = {}
+    for name, dev in (("cpu", "cpu"), ("card", device)):
+        model = models.UNet(device=dev)
+        model.load_state_dict(sd)
+        xb = x[:64].to(dev)
+        x_rec, _ = model(xb)
+        torch.mean((x_rec - xb) ** 2).backward()
+        grads[name] = torch.cat([p.grad.flatten().cpu()
+                                 for p in model.parameters()])
+    grad_gap = float((grads["card"] - grads["cpu"]).norm()
+                     / grads["cpu"].norm())
+    forward, hist = {}, {}
+    runs = [("cpu", "cpu", False), ("card 1", device, False),
+            ("card 2", device, False), ("card det 1", device, True),
+            ("card det 2", device, True)]
+    for name, dev, det in runs:
+        torch.backends.cudnn.deterministic = det
+        try:
+            model = models.UNet(device=dev)
+            model.load_state_dict(sd)
+            val = train.make_batched_data(x[split:].to(dev), 64)
+            with torch.no_grad():
+                forward[name] = eval_epoch(model, val)
+            out = train.train_aec(
+                model, train.create_train_state(model, 1e-3),
+                train.make_batched_data(x[:split].to(dev), 64), val,
+                train.AECConfig(n_epochs=1))
+        finally:
+            torch.backends.cudnn.deterministic = False
+        hist[name] = out["history"]["train"] + out["history"]["validation"]
+
+    def gap(a, b):
+        return [abs(u - w) / w for u, w in zip(hist[a], hist[b])]
+
+    fwd = abs(forward["card 1"] - forward["cpu"]) / forward["cpu"]
+    print(f"UNet cpu vs card on {card}, {len(x)} windows: seeded weights' "
+          f"validation loss {forward['cpu']:.9e} vs {forward['card 1']:.9e}"
+          f", gap {fwd:.3e} (bound {UNET_FORWARD_RTOL}); first batch's "
+          f"gradients, relative gap {grad_gap:.3e} (bound {UNET_GRAD_RTOL})"
+          "; one epoch [train, val] "
+          + "; ".join(f"{k} {v}" for k, v in hist.items()), flush=True)
+    print("UNet relative gaps [train, val]: " + "; ".join(
+        f"{k} vs cpu {[f'{g:.3e}' for g in gap(k, 'cpu')]}"
+        for k in hist if k != "cpu")
+        + f"; card 2 vs card 1 {[f'{g:.3e}' for g in gap('card 2', 'card 1')]}"
+        + f"; card det 2 vs card det 1 "
+        f"{[f'{g:.3e}' for g in gap('card det 2', 'card det 1')]}",
+        flush=True)
+    check(fwd <= UNET_FORWARD_RTOL, f"UNet cpu vs card forward gap {fwd}")
+    check(grad_gap <= UNET_GRAD_RTOL, f"UNet cpu vs card gradients {grad_gap}")
+    check(all(g <= b for g, b in zip(gap("card 1", "cpu"), UNET_EPOCH_RTOL)),
+          f"UNet cpu vs card first-epoch loss gaps {gap('card 1', 'cpu')}")
+
+
+def bf16_epochs(device, x: torch.Tensor, card: str) -> dict:
+    """The loss of one epoch of Adam steps (batch 64) of the workflow's
+    seeded AEC (seed 0) on windows x in float32 and in bf16, each on the
+    card and on the CPU. Returns {name: loss}."""
+    from spectrogram_cube_clustering_tpu_torch import core, models, train
+    from spectrogram_cube_clustering_tpu_torch.train.aec import train_epoch
+
+    losses = {}
+    for where, dev in (("card", device), ("cpu", "cpu")):
+        data = train.make_batched_data(x.to(dev), 64)
+        for name, policy in (("float32", core.DEFAULT), ("bf16", core.BF16)):
+            model = models.AEC(generator=torch.Generator().manual_seed(0),
+                               device=dev)
+            losses[f"{where} {name}"] = train_epoch(
+                train.create_train_state(model, 1e-3), data, policy)
+    print(f"bf16 epochs on {card}, {len(x)} windows: "
+          + "; ".join(f"{k} {v:.6e}" for k, v in losses.items())
+          + "; bf16 against float32: card "
+          f"{losses['card bf16'] / losses['card float32'] - 1:+.4e}, cpu "
+          f"{losses['cpu bf16'] / losses['cpu float32'] - 1:+.4e}",
+          flush=True)
+    return losses
+
+
+def phase_architectures(device, card, cuda_stft, spectrogram_plain,
+                        tmp: str, sources: dict,
+                        save_bf16: Optional[str] = None) -> int:
+    """4h: the packed and UNet architectures and the bf16 policy at full
+    width from 4c's (16, 2^20) waveform source (K1 at the head of every
+    stage): packed through the five stages and a /predict_waveform of
+    400,000 samples to the trained packed DEC over HTTP; UNet through AEC
+    train and predict; the five stages with precision = bf16. Writes the
+    bf16 epoch's inputs to `save_bf16` when given. Returns the STFT
+    launches of the phase's run."""
+    from spectrogram_cube_clustering_tpu_torch import serve, serve_http
+    from spectrogram_cube_clustering_tpu_torch.signal.stft import (
+        spectrogram_windows,
+    )
+
+    universal, truth = sources["waveform"]
+    wave = np.load(universal["fname_dataset"], mmap_mode="r")[0, :400_000]
+    wave = np.ascontiguousarray(wave)
+    runs = {}
+    cuda_stft.LAUNCHES = 0  # 4h's run starts here
+    runs["packed"] = run_five_stages(f"{tmp}/packed", universal, card,
+                                     "packed", {"arch": "packed"})
+    weights = os.path.join(runs["packed"][0]["dec_train"],
+                           "DEC_Params_Final.pt")
+    predictor = serve.DECPredictor.from_checkpoint(
+        weights, 5, max_batch=1024, buckets=True, device=device,
+        arch="packed")
+    frontend = serve.WaveformFrontend(predictor)
+    frontend.warmup()
+    server = serve_http.make_server(predictor, host="127.0.0.1", port=0,
+                                    waveform_frontend=frontend)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    host, port = server.server_address[:2]
+    try:
+        status, answer, secs = post(
+            f"http://{host}:{port}/predict_waveform", wave)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    check(not thread.is_alive(), "packed server thread stopped")
+    check(status == 200, f"packed /predict_waveform status {status}")
+    runs["UNet"] = run_five_stages(f"{tmp}/unet", universal, card, "UNet",
+                                   {"arch": "UNet"}, dec=False)
+    runs["bf16"] = run_five_stages(f"{tmp}/bf16", universal, card, "bf16",
+                                   {"precision": "bf16"})
+    launches = cuda_stft.LAUNCHES  # ... and ends here
+    print(f"architectures: STFT kernel launches {launches}", flush=True)
+    check(launches >= 11, "STFT kernel in the waveform stages of 4h")
+
+    # packed: the clustering, and the served answer against the same
+    # predictor fed the plain STFT's windows on the card
+    check_dec_predict(runs["packed"][0]["dec_predict"], truth, "packed")
+    want = reference(predictor, wave, spectrogram_plain)
+    check_answer("packed /predict_waveform", answer, want, len(want["q"]))
+    print(f"packed /predict_waveform {len(wave)} samples on {card}: "
+          f"{secs * 1e3:.2f} ms", flush=True)
+
+    # UNet: finite decreasing losses, 16-d latents, and one epoch on the
+    # CPU and the card from the same weights on a 2,048-window slice
+    unet_loss = aec_history(runs["UNet"][0]["aec_train"])
+    z = np.load(os.path.join(runs["UNet"][0]["aec_predict"], "Z_AEC.npy"))
+    print(f"UNet on {card}: AEC losses {unet_loss}; Z_AEC {z.shape}",
+          flush=True)
+    check(np.isfinite(unet_loss).all() and unet_loss[-1] < unet_loss[0],
+          f"UNet losses {unet_loss}")
+    check(z.shape == (len(truth), 16) and np.isfinite(z).all(),
+          f"UNet latents {z.shape}")
+    unet_cpu_vs_card(device, spectrogram_windows(torch.from_numpy(np.load(
+        universal["fname_dataset"], mmap_mode="r")[0, :2_048 * 400 + 100])),
+        card)
+
+    # bf16: the clustering, and its AEC stage's losses beside 4c's float32
+    # run of the same source and seeded weights (not gated: three epochs
+    # with early stopping, see the gate below)
+    check_dec_predict(runs["bf16"][0]["dec_predict"], truth, "bf16")
+    [f32_dir] = _dirs_holding(f"{tmp}/B", "AEC_history.csv")
+    f32_loss = aec_history(f32_dir)
+    bf16_loss = aec_history(runs["bf16"][0]["aec_train"])
+    print(f"bf16 workflow on {card}: AEC losses {bf16_loss} vs float32 "
+          f"{f32_loss}; relative gaps "
+          f"{[round((b - f) / f, 6) for b, f in zip(bf16_loss, f32_loss)]}",
+          flush=True)
+
+    # each run's walls, samples/s and peak memory, and the architectures'
+    # train rates on one set of windows
+    for name, (_, walls, _, peaks) in runs.items():
+        walls_s = {k: round(v, 3) for k, v in walls.items()}
+        peaks_mib = {k: round(v / 2**20, 1) for k, v in peaks.items()}
+        print(f"architectures {name} on {card}: stage walls {walls_s} s; "
+              f"peak device memory above each stage's start {peaks_mib} MiB",
+              flush=True)
+    full = np.load(universal["fname_dataset"])
+    x = spectrogram_windows(torch.from_numpy(full).to(device))
+    del full
+    # the AEC stage's first epoch (its training windows in their order,
+    # its seeded weights) in bf16 on the card against the same on the
+    # CPU; and the card's bf16-vs-float32 gap against the JAX package's on
+    # the same epoch. bf16 lands ~3.5% below float32 here in both
+    # packages (PERF.md, 4h), so a bound of rtol 0.02 between the two
+    # cannot hold and the reference's own gap is the gate
+    from spectrogram_cube_clustering_tpu_torch.data import train_val_split
+
+    idx_tra = torch.from_numpy(train_val_split(len(x))[0]).to(device)
+    if save_bf16:
+        save_bf16_inputs(save_bf16, x[idx_tra])
+    losses = bf16_epochs(device, x[idx_tra], card)
+    rel = abs(losses["card bf16"] - losses["cpu bf16"]) / losses["cpu bf16"]
+    card_gap = losses["card bf16"] / losses["card float32"] - 1
+    print(f"bf16 on {card}: one AEC epoch's loss on the card {rel:.3e} "
+          f"from the CPU's (bound {BF16_CARD_RTOL}); its gap to float32 "
+          f"{card_gap:+.4e}, the JAX package's {JAX_BF16_GAP} (bound "
+          f"{BF16_GAP_ATOL})", flush=True)
+    check(rel <= BF16_CARD_RTOL, f"bf16 AEC epoch, card vs cpu, gap {rel}")
+    check(JAX_BF16_GAP is not None
+          and abs(card_gap - JAX_BF16_GAP) <= BF16_GAP_ATOL,
+          f"bf16 AEC epoch's gap to float32 {card_gap}, JAX {JAX_BF16_GAP}")
+    rates = epoch_rates(device, x)
+    print(f"architectures train samples/s on {card}, one AEC epoch of "
+          f"{len(x)} windows, batch 64: "
+          f"{ {k: round(v, 1) for k, v in rates.items()} }; packed / "
+          f"parity AEC {rates['packed'] / rates['AEC']:.3f}", flush=True)
+    return launches
+
+
+def _dirs_holding(root: str, name: str) -> list:
+    """The directories under `root` that hold a file called `name`."""
+    return [d for d, _, files in os.walk(root) if name in files]
 
 
 def p999(err: torch.Tensor) -> float:
@@ -1571,6 +1897,9 @@ def phase_loose_precision(cuda_stft) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--save-bf16-inputs", metavar="PATH.npz",
+                    help="write 4h's bf16 epoch windows and seeded AEC "
+                    "weights for tools/bf16_reference_gap.py")
     args = ap.parse_args()
 
     # 1. device
@@ -1720,9 +2049,15 @@ def main() -> int:
         # 4g. the same stages with loadmode = stream from 4c's sources, and
         # the wire dtypes
         phase_stream(device, card, cuda_stft, tmp, sources)
+        # 4h. the packed and UNet architectures and the bf16 policy from
+        # 4c's waveform
+        arch_launches = phase_architectures(device, card, cuda_stft,
+                                            spectrogram_plain, tmp, sources,
+                                            args.save_bf16_inputs)
     max_err = max(max_err, cube_err)
     print(f"STFT kernel launches: serving path {launches}, training path "
-          f"{train_launches}, workflow {wf_launches}", flush=True)
+          f"{train_launches}, workflow {wf_launches}, architectures "
+          f"{arch_launches}", flush=True)
     check(train_launches >= 1, "STFT kernel on the training path")
     # 4d. the STFT precision and interior variants
     variant_entries = phase_variants(device, gen, card, cuda_stft,
@@ -1785,7 +2120,7 @@ def main() -> int:
         "route": "cuda",
         "source": "spectrogram_cube_clustering_tpu_torch/csrc/stft.cu",
         "replaces": "spectrogram_cube_clustering_tpu/ops/pallas_stft.py:86",
-        "launches": launches + train_launches + wf_launches,
+        "launches": launches + train_launches + wf_launches + arch_launches,
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,

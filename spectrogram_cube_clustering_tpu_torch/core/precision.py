@@ -1,5 +1,17 @@
-"""Wire dtypes: reduced-width host-to-device transfer (counterpart of the
-wire functions of the JAX package's `core/precision.py`).
+"""The compute-precision policy and the wire dtypes (counterpart of the
+JAX package's `core/precision.py`).
+
+`Precision` is the ini key `precision`: `DEFAULT` computes in float32
+everywhere; `BF16` runs the forward passes of training, evaluation and
+predict under `torch.autocast` in bfloat16 (convolutions and matmuls take
+bfloat16 operands and give bfloat16 activations), while the parameters
+and Adam state stay float32 (the master copy autocast casts from), and the
+losses, the Student-t assignment and the target distribution see float32
+(the sums mix bfloat16 activations with float32 inputs and centroids, and
+promote). BF16 is an opt-in: no parity path takes it, and TF32 stays off
+under DEFAULT (`core.device.fp32_policy_for`).
+
+Wire dtypes: reduced-width host-to-device transfer.
 
 The streaming loader (`data.prefetch.PrefetchLoader`), the stream predict
 (`workflow.predict`) and the predictors (`serve.py`) take a
@@ -14,10 +26,43 @@ with one scale per sample (axis 0), or one for a whole rank-1 segment.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 from typing import Optional, Union
 
 import numpy as np
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class Precision:
+    """Dtype of the forward passes' activations; parameters, optimizer
+    state and statistics stay float32."""
+
+    compute_dtype: torch.dtype = torch.float32
+
+    def autocast(self, device):
+        """The context a forward pass runs in on `device` (a device, its
+        name, or a tensor's device)."""
+        if self.compute_dtype == torch.float32:
+            return contextlib.nullcontext()
+        return torch.autocast(torch.device(device).type,
+                              dtype=self.compute_dtype)
+
+
+#: float32 everywhere
+DEFAULT = Precision()
+#: bfloat16 activations, float32 parameters, Adam state and statistics
+BF16 = Precision(torch.bfloat16)
+
+
+def precision_policy(name: Optional[str]) -> Precision:
+    """The policy of the ini key `precision` ('default', 'bf16'; unset
+    means 'default')."""
+    policies = {None: DEFAULT, "default": DEFAULT, "bf16": BF16}
+    if name not in policies:
+        raise ValueError(f"unknown precision {name!r} ('default' or 'bf16')")
+    return policies[name]
 
 WIRE_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
                "int8": torch.int8}

@@ -318,8 +318,8 @@ extern "C" int scc_stftv_passthrough_launch(const float* x, float* out,
                                             int hop, int ratio, int lanes,
                                             void* stream) {
   // every index within a batch row must fit in 32 bits: the samples, the
-  // row's outputs and the staged span of its last tile (t = 0 stages zeros)
-  if (batch < 1 || t < 0 || n_rows < 1 || hop < 1 || ratio < 1 ||
+  // row's outputs and the staged span of its last tile; t = 0 is refused
+  if (batch < 1 || t < 1 || n_rows < 1 || hop < 1 || ratio < 1 ||
       lanes < hop || int64_t(n_rows) * lanes > INT32_MAX ||
       (int64_t(n_rows) + ratio - 1) * hop > INT32_MAX)
     return int(cudaErrorInvalidValue);

@@ -73,9 +73,21 @@ def replace_centroids(model: DEC, centroids) -> DEC:
     return model
 
 
-def load_encoder_decoder_from_aec(dec: DEC, aec: nn.Module) -> DEC:
+def load_encoder_decoder_from_aec(dec: nn.Module,
+                                  aec: nn.Module) -> nn.Module:
     """Copy the encoder and decoder weights of a trained AEC into the DEC
-    in place; the centroids stay (reference models.py:977-979)."""
+    in place; the centroids stay (reference models.py:977-979). The pair
+    must be of one family: AEC -> DEC or PackedAEC -> PackedDEC."""
+    from spectrogram_cube_clustering_tpu_torch.models.packed import (
+        PackedAEC,
+        PackedDEC,
+    )
+
+    if isinstance(dec, PackedDEC) != isinstance(aec, PackedAEC):
+        raise ValueError(
+            f"cannot load a {type(aec).__name__}'s encoder and decoder into "
+            f"a {type(dec).__name__}: a packed DEC takes a packed AEC's, a "
+            "DEC an AEC's")
     dec.encoder.load_state_dict(aec.encoder.state_dict())
     dec.decoder.load_state_dict(aec.decoder.state_dict())
     return dec

@@ -289,10 +289,14 @@ _SMEM_BYTES = 227 * 1024  # an sm_90 block's dynamic shared memory
 
 def check_passthrough_range(b: int, t: int, rows: int, lanes: int, hop: int,
                             ratio: int) -> None:
-    """Raise ValueError where the passthrough kernel's 32-bit indices
-    cannot reach a batch row (its samples, its outputs or its last staged
-    span past 2^31 - 1), or a tile's staged span exceeds a block's shared
-    memory; the launcher refuses the same geometry."""
+    """Raise ValueError for an empty last axis (T = 0), where the
+    passthrough kernel's 32-bit indices cannot reach a batch row (its
+    samples, its outputs or its last staged span past 2^31 - 1), or where
+    a tile's staged span exceeds a block's shared memory; the launcher
+    refuses the same geometry."""
+    if t < 1:
+        raise ValueError(f"passthrough needs samples: the last axis is empty "
+                         f"(B={b}, T={t})")
     if max(b, t, rows * lanes, (rows + ratio - 1) * hop) > _INT32_MAX:
         raise ValueError(
             f"passthrough geometry out of the kernel's 32-bit range: B={b}, "

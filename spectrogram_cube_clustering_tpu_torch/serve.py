@@ -18,8 +18,10 @@ waveform route, each chunk's raw samples, one int8 scale per channel) are
 encoded on the host and restored to float32 on the device before the
 normalizer, so the only effect is input quantization.
 
-Not ported yet (each raises NotImplementedError): mesh serving and
-`arch="packed"`; see ROADMAP.md.
+`arch` is "AEC" (the parity model) or "packed" (models/packed.py, the
+(4, 101) geometry only), for both predictors, their `from_checkpoint` and
+so for the waveform frontend. Not ported yet: mesh serving, which raises
+NotImplementedError (ROADMAP.md Queue 1, Multi-GPU).
 """
 
 from __future__ import annotations
@@ -39,29 +41,41 @@ from spectrogram_cube_clustering_tpu_torch.core.precision import (
     wire_dtype,
     wire_to,
 )
-from spectrogram_cube_clustering_tpu_torch.models.aec import AEC
-from spectrogram_cube_clustering_tpu_torch.models.dec import DEC
+from spectrogram_cube_clustering_tpu_torch.models.build import build_model
 from spectrogram_cube_clustering_tpu_torch.ops.normalize import make_normalizer
 from spectrogram_cube_clustering_tpu_torch.signal.stft import (
     spectrogram_windows,
+)
+from spectrogram_cube_clustering_tpu_torch.train.checkpoint import (
+    check_restored_shapes,
 )
 from spectrogram_cube_clustering_tpu_torch.utils.weights import (
     load_state_dict_file,
 )
 
 
-def _check_ported(arch: str, mesh) -> None:
+def _check_ported(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "mesh serving is not ported yet (ROADMAP.md Queue 1, Multi-GPU)"
         )
-    if arch == "packed":
-        raise NotImplementedError(
-            "arch='packed' is not ported yet (ROADMAP.md Queue 1, Other "
-            "architectures)"
-        )
-    if arch != "AEC":
+
+
+def _build_model(kind: str, arch: str, input_hw, attention_faithful: bool,
+                 n_clusters: Optional[int] = None):
+    """The served model of `kind` ('DEC' or 'AEC') and `arch` ('AEC' or
+    'packed'), float32 on the CPU, from `models.build_model`."""
+    if arch not in ("AEC", "packed"):
         raise ValueError(f"unknown arch {arch!r} ('AEC' or 'packed')")
+    return build_model(kind, arch, input_hw, attention_faithful, n_clusters)
+
+
+def _loaded(model, state_dict, what: str):
+    """`model` with `state_dict` loaded; a checkpoint of another arch or
+    geometry raises ValueError naming what differs."""
+    check_restored_shapes(state_dict, model.state_dict(), what)
+    model.load_state_dict(state_dict)
+    return model
 
 
 def _pad_to(x: torch.Tensor, batch: int) -> torch.Tensor:
@@ -169,12 +183,10 @@ class DECPredictor(_Predictor):
         attention_faithful: bool = True,
         device=None,
     ):
-        _check_ported(arch, mesh)
-        model = DEC(
-            n_clusters, input_hw=input_hw,
-            attention_faithful=attention_faithful,
-        )
-        model.load_state_dict(state_dict)
+        _check_ported(mesh)
+        model = _loaded(_build_model("DEC", arch, input_hw,
+                                     attention_faithful, n_clusters),
+                        state_dict, f"{arch} DEC")
         super().__init__(model, max_batch, transform, buckets, device,
                          transfer_dtype)
 
@@ -195,7 +207,8 @@ class DECPredictor(_Predictor):
 
 
 class AECEncoder(_Predictor):
-    """Encoder inference: windows (n, H, W, 1) -> latents (n, 9)."""
+    """Encoder inference: windows (n, H, W, 1) -> latents (n, 9), of an
+    AEC or packed AEC checkpoint (or a DEC's, whose centroids it drops)."""
 
     def __init__(
         self,
@@ -210,12 +223,12 @@ class AECEncoder(_Predictor):
         attention_faithful: bool = True,
         device=None,
     ):
-        _check_ported(arch, mesh)
-        model = AEC(input_hw=input_hw, attention_faithful=attention_faithful)
+        _check_ported(mesh)
         # a DEC checkpoint serves its encoder too: the centroids are unused
-        model.load_state_dict(
-            {k: v for k, v in state_dict.items() if k != "clustering.weights"}
-        )
+        model = _loaded(
+            _build_model("AEC", arch, input_hw, attention_faithful),
+            {k: v for k, v in state_dict.items() if k != "clustering.weights"},
+            f"{arch} AEC")
         super().__init__(model, max_batch, transform, buckets, device,
                          transfer_dtype)
 

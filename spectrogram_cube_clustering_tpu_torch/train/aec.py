@@ -14,6 +14,10 @@ its per-epoch path; reference Cluster/models.py:761-926).
 `train_aec_stream` runs the same epoch control (`_run_epochs`) over a
 streaming loader (`data.prefetch.PrefetchLoader`, `loadmode = stream`):
 one step per batch, losses kept on the device until the epoch ends.
+
+Every step and eval takes a `core.precision.Precision` (`precision=`,
+default float32): its forward passes run in the policy's autocast, the
+loss in float32.
 """
 
 from __future__ import annotations
@@ -24,7 +28,11 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from spectrogram_cube_clustering_tpu_torch.core.precision import dequant_wire
+from spectrogram_cube_clustering_tpu_torch.core.precision import (
+    DEFAULT,
+    Precision,
+    dequant_wire,
+)
 from spectrogram_cube_clustering_tpu_torch.train import checkpoint as ckpt
 from spectrogram_cube_clustering_tpu_torch.train.layout import BatchedData
 from spectrogram_cube_clustering_tpu_torch.train.state import (
@@ -41,21 +49,24 @@ class AECConfig:
     verbose: bool = False
 
 
-def _batch_loss(model, x: torch.Tensor, mask: torch.Tensor):
+def _batch_loss(model, x: torch.Tensor, mask: torch.Tensor,
+                precision: Precision):
     """(masked mean-squared error over real rows, their count)."""
-    x_rec, _ = model(x)
-    d = x_rec - x
+    with precision.autocast(x.device):
+        x_rec, _ = model(x)
+    d = x_rec - x  # float32: x is, and a bfloat16 x_rec promotes
     per = torch.mean(d * d, dim=tuple(range(1, x.dim())))
     nvalid = torch.clamp(torch.sum(mask), min=1.0)
     return torch.sum(per * mask) / nvalid, nvalid
 
 
-def train_epoch(state: TrainState, data: BatchedData) -> float:
+def train_epoch(state: TrainState, data: BatchedData,
+                precision: Precision = DEFAULT) -> float:
     """One pass of Adam steps over every batch; the epoch's mean loss."""
     model = state.model
     sums = torch.zeros((), dtype=torch.float32, device=data.x.device)
     for i in range(data.n_batches):
-        loss, nvalid = _batch_loss(model, data.x[i], data.mask[i])
+        loss, nvalid = _batch_loss(model, data.x[i], data.mask[i], precision)
         loss.backward()
         state.apply_gradients()
         sums += loss.detach() * nvalid
@@ -63,10 +74,11 @@ def train_epoch(state: TrainState, data: BatchedData) -> float:
 
 
 @torch.no_grad()
-def eval_epoch(model, data: BatchedData) -> float:
+def eval_epoch(model, data: BatchedData,
+               precision: Precision = DEFAULT) -> float:
     sums = torch.zeros((), dtype=torch.float32, device=data.x.device)
     for i in range(data.n_batches):
-        loss, nvalid = _batch_loss(model, data.x[i], data.mask[i])
+        loss, nvalid = _batch_loss(model, data.x[i], data.mask[i], precision)
         sums += loss * nvalid
     return float(sums / torch.clamp(torch.sum(data.mask), min=1.0))
 
@@ -176,6 +188,7 @@ def train_aec(
     snapshot_path: Optional[str] = None,
     resume: bool = False,
     sync_every: int = 1,
+    precision: Precision = DEFAULT,
 ) -> Dict:
     """Run AEC pretraining on `model` (the module `state` optimizes).
     Returns the state, the final params (a state_dict copy: the
@@ -193,15 +206,15 @@ def train_aec(
     del sync_every
 
     def run_epoch(state):
-        tra_loss = train_epoch(state, tra)
-        return tra_loss, (eval_epoch(model, val) if val is not None
+        tra_loss = train_epoch(state, tra, precision)
+        return tra_loss, (eval_epoch(model, val, precision) if val is not None
                           else tra_loss)
 
     return _run_epochs(model, state, config, run_epoch, log_scalar,
                        save_checkpoint, snapshot_path, 1, resume)
 
 
-def make_step_fns(model):
+def make_step_fns(model, precision: Precision = DEFAULT):
     """(train_step(state, x, n_valid) -> loss, eval_step(x, n_valid) ->
     loss) for the streaming path: the masked MSE over the first n_valid
     rows of a loader batch, restored to float32 on the device first (the
@@ -212,7 +225,8 @@ def make_step_fns(model):
         x = dequant_wire(x)
         mask = (torch.arange(x.shape[0], device=x.device)
                 < n_valid).to(x.dtype)
-        x_rec, _ = model(x)
+        with precision.autocast(x.device):
+            x_rec, _ = model(x)
         d = x_rec - x
         per = torch.mean(d * d, dim=tuple(range(1, x.dim())))
         return torch.sum(per * mask) / max(float(n_valid), 1.0)
@@ -249,6 +263,7 @@ def train_aec_stream(
     snapshot_path: Optional[str] = None,
     snapshot_every: int = 1,
     resume: bool = False,
+    precision: Precision = DEFAULT,
 ) -> Dict:
     """AEC pretraining over a streaming loader: `make_loader()` returns an
     iterable of (device batch, n_valid) for one epoch. Early stopping,
@@ -256,7 +271,7 @@ def train_aec_stream(
     `make_val_loader`, else the training loss). With `snapshot_path` a
     snapshot is written every `snapshot_every` epochs, at the early stop
     and after the last epoch; `resume=True` continues from it."""
-    train_step, eval_step = make_step_fns(model)
+    train_step, eval_step = make_step_fns(model, precision)
 
     def run_epoch(state):
         losses, ns = [], []

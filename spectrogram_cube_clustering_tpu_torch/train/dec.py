@@ -21,6 +21,11 @@ device-resident batches, `train_dec_stream` over a streaming loader
 (`loadmode = stream`), whose iteration must be deterministic and
 unshuffled, since p is sliced by the running sample offset, and whose
 refreshes are streamed full evals (`full_eval_stream`).
+
+The forward passes of the steps and evals run in the autocast of a
+`core.precision.Precision` (`precision=`, default float32); their q, z
+and reconstructions leave in float32, so the refreshes' target
+distribution and the cluster init are float32 statistics.
 """
 
 from __future__ import annotations
@@ -33,6 +38,8 @@ import torch
 
 from spectrogram_cube_clustering_tpu_torch.core.device import fp32_policy_for
 from spectrogram_cube_clustering_tpu_torch.core.precision import (
+    DEFAULT,
+    Precision,
     dequant_wire,
     wire_array,
 )
@@ -68,20 +75,22 @@ class DECConfig:
 
 
 @torch.no_grad()
-def full_eval(model, data: BatchedData, with_xr: bool = False):
+def full_eval(model, data: BatchedData, with_xr: bool = False,
+              precision: Precision = DEFAULT):
     """Full-dataset inference: (q (M, K) rounded to 5 decimals, labels (M,)
     int32, z (M, D)), plus the reconstructions (M, H, W, C) when
-    `with_xr`. Reference: batch_eval (models.py:41-103)."""
+    `with_xr`, all float32. Reference: batch_eval (models.py:41-103)."""
     fp32_policy_for(data.x.device)
     m = data.n_samples
     x = data.x.reshape(-1, *data.x.shape[2:])[:m]
     qs, zs, xrs = [], [], []
     for lo in range(0, m, EVAL_ROWS):
-        q, x_rec, z = model(x[lo:lo + EVAL_ROWS])
-        qs.append(q)
-        zs.append(z)
+        with precision.autocast(x.device):
+            q, x_rec, z = model(x[lo:lo + EVAL_ROWS])
+        qs.append(q.float())
+        zs.append(z.float())
         if with_xr:
-            xrs.append(x_rec)
+            xrs.append(x_rec.float())
     q = torch.round(torch.cat(qs), decimals=5)
     labels = torch.argmax(q, dim=1).to(torch.int32)
     if with_xr:
@@ -94,13 +103,16 @@ def initialize_clusters(
     data: BatchedData,
     config: DECConfig,
     initial: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+    precision: Precision = DEFAULT,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cluster init: (labels (M,) int32, centroids (K, D) float32) on the
     data's device. Reference: models.py:498-543. `load` takes them from
     `initial`; `rand` draws them from numpy's generator exactly as the
     JAX package does; `kmeans` and `gmm` cluster the model's latents."""
-    return _init_clusters(model, config, data.n_samples, initial,
-                          lambda: full_eval(model, data)[2], data.x.device)
+    return _init_clusters(
+        model, config, data.n_samples, initial,
+        lambda: full_eval(model, data, precision=precision)[2],
+        data.x.device)
 
 
 def _init_clusters(model, config: DECConfig, n_samples: int, initial,
@@ -173,6 +185,7 @@ def train_dec(
     snapshot_every: int = 4,
     snapshot_path: Optional[str] = None,
     resume: bool = False,
+    precision: Precision = DEFAULT,
 ) -> Dict:
     """Run DEC refinement on `model` (the module `state` optimizes).
     Returns the state, the params after cluster init (`initial_params`),
@@ -192,21 +205,21 @@ def train_dec(
             yield data.x[i], min(bsz, m - i * bsz)
 
     return _train_dec(model, state, config, batches,
-                      lambda: full_eval(model, data), m, data.x.device,
-                      initial, log_scalar, snapshot_cb, snapshot_every,
-                      snapshot_path, resume)
+                      lambda: full_eval(model, data, precision=precision), m,
+                      data.x.device, initial, log_scalar, snapshot_cb,
+                      snapshot_every, snapshot_path, resume, precision)
 
 
 def _train_dec(model, state, config: DECConfig, batches, evaluate, m: int,
                device, initial, log_scalar, snapshot_cb, snapshot_every,
-               snapshot_path, resume) -> Dict:
+               snapshot_path, resume, precision: Precision) -> Dict:
     """The refinement of both paths. `batches()` yields one epoch's
     (batch, n_valid) in sample order, the same every pass: the target p
     is sliced by the running sample offset. `evaluate()` is the full eval,
     (q rounded to 5 decimals and int32 labels on `device`, z)."""
     if state.model is not model:
         raise ValueError("state must optimize the model being trained")
-    train_step = make_stream_fns(model, config.gamma)[0]
+    train_step = make_stream_fns(model, config.gamma, precision)[0]
     history: Dict[str, List[float]] = {
         "iteration": [], "reconstruction": [], "clustering": [], "total": [],
     }
@@ -332,7 +345,7 @@ def _train_dec(model, state, config: DECConfig, batches, evaluate, m: int,
 # ---------------------------------------------------------------- streaming
 
 
-def make_stream_fns(model, gamma: float):
+def make_stream_fns(model, gamma: float, precision: Precision = DEFAULT):
     """(train_step(state, x, p, n_valid) -> (loss, rec, clust),
     eval_step(x) -> (q rounded to 5 decimals, z)) for the streaming path:
     the loss of `train_dec` over the first n_valid rows of a loader batch,
@@ -343,7 +356,8 @@ def make_stream_fns(model, gamma: float):
         x = dequant_wire(x)
         mask = (torch.arange(x.shape[0], device=x.device)
                 < n_valid).to(x.dtype)
-        q_b, x_rec, _ = model(x)
+        with precision.autocast(x.device):
+            q_b, x_rec, _ = model(x)
         loss, (rec, clust) = dec_loss(x_rec, x, q_b, p, gamma, mask=mask)
         loss.backward()
         state.apply_gradients()
@@ -351,8 +365,10 @@ def make_stream_fns(model, gamma: float):
 
     @torch.no_grad()
     def eval_step(x):
-        q, _, z = model(dequant_wire(x))
-        return torch.round(q, decimals=5), z
+        x = dequant_wire(x)
+        with precision.autocast(x.device):
+            q, _, z = model(x)
+        return torch.round(q.float(), decimals=5), z.float()
 
     return train_step, eval_step
 
@@ -385,13 +401,14 @@ def train_dec_stream(
     resume: bool = False,
     snapshot_cb: Optional[Callable] = None,
     snapshot_every: int = 4,
+    precision: Precision = DEFAULT,
 ) -> Dict:
     """DEC refinement over a streaming loader: `make_loader()` yields
     (device batch, n_valid) in the same order every pass. Semantics and
     result are `train_dec`'s; each refresh streams the whole dataset
     through `full_eval_stream`. `snapshot_path`/`resume` as in
     `train_dec` (the snapshot holds p and the previous labels)."""
-    eval_step = make_stream_fns(model, config.gamma)[1]
+    eval_step = make_stream_fns(model, config.gamma, precision)[1]
     device = next(model.parameters()).device
     fp32_policy_for(device)
 
@@ -402,4 +419,4 @@ def train_dec_stream(
 
     return _train_dec(model, state, config, make_loader, evaluate, m_total,
                       device, initial, None, snapshot_cb, snapshot_every,
-                      snapshot_path, resume)
+                      snapshot_path, resume, precision)

@@ -15,6 +15,14 @@ NHWC feature map in (h, w, c) order and torch flattens NCHW in (c, h, w)
 order. The two agree when c = 1 (the faithful attention); with
 `attention_faithful=False` c = 8 and the encoder Linear's input columns are
 reordered.
+
+The packed and UNet trees (`arch = packed | UNet`) cross over too. The
+packed decoder's flax padding="SAME" transposed convs (`transpose_kernel=
+False`, kernel (kh, kw, in, out)) become `models.SameConvTranspose2d`
+weights: flipped in both spatial axes, then (in, out, kh, kw). The packed
+models flatten in the JAX (h, w, c) order inside their forward and the
+UNet in (c, h, w) order in both packages, so their Dense kernels only
+transpose.
 """
 
 from __future__ import annotations
@@ -50,12 +58,7 @@ def _encoder_dense(k, input_hw: Tuple[int, int]) -> np.ndarray:
     return k.reshape(h3, w3, c, -1).transpose(2, 0, 1, 3).reshape(k.shape[0], -1).T
 
 
-def state_dict_from_jax_params(
-    params: Mapping, input_hw: Tuple[int, int] = (4, 101)
-) -> Dict[str, torch.Tensor]:
-    """The JAX package's AEC or DEC param tree (numpy or jax arrays) -> this
-    package's state_dict (float32 CPU tensors). DEC when it has
-    `centroids`."""
+def _aec(params: Mapping, input_hw: Tuple[int, int]) -> dict:
     enc, dec = params["encoder"], params["decoder"]
     sd = {}
     for n, i in enumerate(_ENC_CONVS):
@@ -75,6 +78,72 @@ def state_dict_from_jax_params(
         sd[f"decoder.decoder.{i}.weight"] = _conv(entry["kernel"])
         if "bias" in entry:
             sd[f"decoder.decoder.{i}.bias"] = entry["bias"]
+    return sd
+
+
+def _same_convt(k) -> np.ndarray:
+    """flax padding="SAME" transposed-conv kernel (kh, kw, in, out) ->
+    `SameConvTranspose2d` weight (in, out, kh, kw)."""
+    return np.asarray(k)[::-1, ::-1].transpose(2, 3, 0, 1)
+
+
+def jax_arch(params: Mapping) -> str:
+    """'AEC', 'packed' or 'UNet': which JAX model a param tree is from."""
+    if "DoubleConv_0" in params:
+        return "UNet"
+    if "SpatialAttention_0" in params.get("encoder", {}):
+        return "AEC"
+    if "Conv_0" in params.get("encoder", {}):
+        return "packed"
+    raise ValueError(f"not a JAX AEC, DEC, packed or UNet param tree: "
+                     f"keys {sorted(params)}")
+
+
+def _packed(params: Mapping) -> dict:
+    enc, dec = params["encoder"], params["decoder"]
+    sd = {}
+    for n in range(3):
+        sd[f"encoder.convs.{2 * n}.weight"] = _conv(enc[f"Conv_{n}"]["kernel"])
+        sd[f"encoder.convs.{2 * n}.bias"] = enc[f"Conv_{n}"]["bias"]
+        entry = dec[f"ConvTranspose_{n}"]
+        sd[f"decoder.convts.{2 * n}.weight"] = _same_convt(entry["kernel"])
+        sd[f"decoder.convts.{2 * n}.bias"] = entry["bias"]
+    for part, tree in (("encoder", enc), ("decoder", dec)):
+        sd[f"{part}.dense.weight"] = np.asarray(tree["Dense_0"]["kernel"]).T
+        sd[f"{part}.dense.bias"] = tree["Dense_0"]["bias"]
+    return sd
+
+
+def _unet(params: Mapping) -> dict:
+    sd = {}
+    for i in range(8):
+        name = (f"down.{i}" if i < 4 else f"up_convs.{i - 4}")
+        for n in range(2):
+            entry = params[f"DoubleConv_{i}"][f"Conv_{n}"]
+            sd[f"{name}.{2 * n}.weight"] = _conv(entry["kernel"])
+            sd[f"{name}.{2 * n}.bias"] = entry["bias"]
+    for i in range(9):
+        name = f"encode_dense.{i}" if i < 4 else f"decode_dense.{i - 4}"
+        sd[f"{name}.weight"] = np.asarray(params[f"Dense_{i}"]["kernel"]).T
+        sd[f"{name}.bias"] = params[f"Dense_{i}"]["bias"]
+    for i in range(3):
+        entry = params[f"TorchConvTranspose_{i}"]["ConvTranspose_0"]
+        sd[f"up_transposes.{i}.weight"] = _conv(entry["kernel"])
+        sd[f"up_transposes.{i}.bias"] = entry["bias"]
+    sd["out.weight"] = _conv(params["Conv_0"]["kernel"])
+    sd["out.bias"] = params["Conv_0"]["bias"]
+    return sd
+
+
+def state_dict_from_jax_params(
+    params: Mapping, input_hw: Tuple[int, int] = (4, 101),
+) -> Dict[str, torch.Tensor]:
+    """The JAX package's AEC, DEC, packed AEC or DEC, or UNet param tree
+    (numpy or jax arrays) -> this package's state_dict (float32 CPU
+    tensors); the arch is the one the tree's keys show (`jax_arch`), a
+    DEC when it has `centroids`."""
+    sd = {"AEC": lambda p: _aec(p, input_hw), "packed": _packed,
+          "UNet": _unet}[jax_arch(params)](params)
     if "centroids" in params:
         sd["clustering.weights"] = params["centroids"]
     return {

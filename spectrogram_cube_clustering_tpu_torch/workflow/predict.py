@@ -13,6 +13,10 @@ in `<run dir>/Prediction/`:
   are its argmax, as in the JAX package's `full_eval`;
 - AEC: `Loss_AEC`, `Z_AEC`, `Xr_AEC` (`.npy`) and `MSE.txt`.
 
+Any `arch` predicts (an AEC predict of a UNet writes its 16-d latents);
+with `precision = bf16` the forward passes run in its autocast and every
+artifact is float32.
+
 Saved spectrogram arrays keep the reference's NCHW layout (M, 1, 4, W).
 The silhouette and t-SNE figures are ROADMAP Queue 1 item 9:
 `figures=True` raises.
@@ -48,6 +52,7 @@ from spectrogram_cube_clustering_tpu_torch.workflow.train import (
     _figures_not_ported,
     _normalize,
     _np_normalizer,
+    _precision,
     _stream_dataset,
     _stream_loader_factory,
     check_not_ported,
@@ -64,11 +69,14 @@ def _to_nchw_np(x: torch.Tensor) -> np.ndarray:
 
 
 @torch.no_grad()
-def _forward(model, x: torch.Tensor, batch: int):
-    """The model over x in chunks of `batch` rows; its outputs concatenated
-    along the rows."""
-    outs = [model(x[lo:lo + batch]) for lo in range(0, len(x), batch)]
-    return tuple(torch.cat(parts) for parts in zip(*outs))
+def _forward(model, x: torch.Tensor, batch: int, precision):
+    """The model over x in chunks of `batch` rows, in the precision
+    policy's autocast; its outputs concatenated along the rows, float32."""
+    outs = []
+    for lo in range(0, len(x), batch):
+        with precision.autocast(x.device):
+            outs.append(model(x[lo:lo + batch]))
+    return tuple(torch.cat(parts).float() for parts in zip(*outs))
 
 
 def predict(config, mesh=None, figures: bool = True) -> Dict:
@@ -89,9 +97,10 @@ def predict(config, mesh=None, figures: bool = True) -> Dict:
     savepath = config.savepath_exp
     batch = int(getattr(config, "batch_size_predict", None) or PREDICT_BATCH)
     model = load_aec_params(config, make_model(config))
+    precision = _precision(config)
 
     if config.model == "DEC":
-        q, xr, z = _forward(model, x, batch)
+        q, xr, z = _forward(model, x, batch, precision)
         q = torch.round(q, decimals=5)
         q_np = q.cpu().numpy()
         z_np = z.cpu().numpy()
@@ -115,7 +124,7 @@ def predict(config, mesh=None, figures: bool = True) -> Dict:
         }
 
     # AEC mode (models.py:705-733)
-    xr, z = _forward(model, x, batch)
+    xr, z = _forward(model, x, batch, precision)
     per = torch.mean((xr - x) ** 2, dim=(1, 2, 3))
     total_loss = float(per.sum(dtype=torch.float64) / max(len(x), 1))
     z_np = z.cpu().numpy()
@@ -158,15 +167,19 @@ def _predict_stream(config) -> Dict:
     xr_wire = wire_dtype(getattr(config, "stream_transfer_dtype", None)
                          or None)
     dec = config.model == "DEC"
+    precision = _precision(config)
 
     @torch.no_grad()
     def step(x):
         x = dequant_wire(x)
+        with precision.autocast(x.device):
+            outs = model(x)
+        outs = [o.float() for o in outs]
         if dec:
-            q, xr, z = model(x)
+            q, xr, z = outs
             first = torch.round(q, decimals=5)
         else:
-            xr, z = model(x)
+            xr, z = outs
             first = torch.mean((xr - x) ** 2, dim=(1, 2, 3))
         return first, quantize_tensor(xr, xr_wire), z
 

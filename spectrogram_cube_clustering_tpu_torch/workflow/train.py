@@ -13,7 +13,11 @@ PrefetchLoader`, `stream_transfer_dtype` the wire, same artifacts):
   with the delta-label stop; artifacts `DEC_Params_Initial.pt`,
   `DEC_Params_Final.pt`, `DEC_history.csv`, `Delta_history.csv`,
   `tmp/SNAPSHOT/`, and with `init = load` the GMM provenance under
-  `GMM/n_clusters=K/`.
+  `GMM/n_clusters=K/`;
+- `arch`: `AEC` (the parity model, default), `packed` (models/packed.py,
+  AEC and DEC) or `UNet` (AEC only); `precision`: `default` (float32) or
+  `bf16` (`core.precision.BF16`, bfloat16 forward passes, float32
+  parameters and statistics).
 
 Checkpoints are `.pt` files of the reference state_dict
 (`train/checkpoint.py`). Not ported, each raising `NotImplementedError`:
@@ -37,6 +41,9 @@ from spectrogram_cube_clustering_tpu_torch.core.device import (
     fp32_policy_for,
     resolve_device,
 )
+from spectrogram_cube_clustering_tpu_torch.core.precision import (
+    precision_policy,
+)
 from spectrogram_cube_clustering_tpu_torch.ops.normalize import make_normalizer
 from spectrogram_cube_clustering_tpu_torch.train.checkpoint import (
     check_restored_shapes,
@@ -50,45 +57,34 @@ from spectrogram_cube_clustering_tpu_torch.workflow.data import (
 )
 
 
+def _precision(config):
+    """The configured `core.precision` policy (ini key `precision`)."""
+    return precision_policy(getattr(config, "precision", None))
+
+
 def make_model(
     config,
     n_clusters: Optional[int] = None,
     generator: Optional[torch.Generator] = None,
 ):
-    """The configured parity architecture on `config.device` (TF32 off on
-    a card), with the window geometry `config.input_hw` set by the data
-    path. Weights come from `generator` (default: a CPU generator seeded
-    with 0)."""
-    precision = getattr(config, "precision", None)
-    if precision == "bf16":
-        raise NotImplementedError(
-            "precision='bf16' is not ported: the port trains in float32 "
-            "only (ROADMAP 'Rules that hold through the round')"
-        )
-    if precision not in (None, "default"):
-        raise ValueError(f"unknown precision {precision!r}")
-    arch = getattr(config, "arch", None) or "AEC"
-    if arch in ("packed", "UNet"):
-        raise NotImplementedError(
-            f"arch={arch!r} is not ported yet: ROADMAP Queue 1 item 8 "
-            "(other architectures)"
-        )
-    if arch != "AEC":
-        raise ValueError(f"unknown arch {arch!r}")
+    """The configured architecture (`arch`: AEC, packed or UNet) on
+    `config.device` (TF32 off on a card), with the window geometry
+    `config.input_hw` set by the data path; its parameters are float32
+    whatever the `precision`, which the train and predict loops apply.
+    Weights come from `generator` (default: a CPU generator seeded with
+    0). Raises ValueError for an unknown precision or arch, a DEC with
+    arch UNet, and packed or UNet at a geometry other than (4, 101)."""
+    _precision(config)
+    hw = getattr(config, "input_hw", None)
     device = resolve_device(getattr(config, "device", None))
     fp32_policy_for(device)
-    kw = dict(
-        attention_faithful=bool(getattr(config, "attention_faithful", True)),
-        generator=generator,
-        device=device,
-    )
-    hw = getattr(config, "input_hw", None)
-    if hw is not None:
-        kw["input_hw"] = (int(hw[0]), int(hw[1]))
-    if config.model == "DEC" or n_clusters is not None:
-        k = int(n_clusters or config.n_clusters)
-        return _models.DEC(n_clusters=k, **kw)
-    return _models.AEC(**kw)
+    dec = config.model == "DEC" or n_clusters is not None
+    return _models.build_model(
+        "DEC" if dec else "AEC", getattr(config, "arch", None) or "AEC",
+        (4, 101) if hw is None else hw,
+        bool(getattr(config, "attention_faithful", True)),
+        int(n_clusters or config.n_clusters) if dec else None,
+        generator=generator, device=device)
 
 
 def _normalize(config, x: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -141,11 +137,17 @@ def _save_aec_artifacts(config, out) -> str:
 def load_aec_params(config, model):
     """Load `config.saved_weights` into `model` in place and return it.
 
-    A DEC in train mode takes the encoder and decoder of AEC params
-    (pretraining's output; reference models.py:977-979) and keeps its
-    centroids; in every other case (AEC predict, DEC predict) the
-    checkpoint holds the model's own params."""
+    A DEC in train mode takes the encoder and decoder of AEC params of its
+    family (pretraining's output: an AEC's for a DEC, a packed AEC's for a
+    packed DEC; reference models.py:977-979) and keeps its centroids; in
+    every other case (AEC predict, DEC predict) the checkpoint holds the
+    model's own params."""
     restored = restore(config.saved_weights)
+    if isinstance(model, _models.PackedDEC) and config.mode == "train":
+        src = _models.PackedAEC()
+        check_restored_shapes(restored, src.state_dict(), "packed AEC")
+        src.load_state_dict(restored)
+        return _models.load_encoder_decoder_from_aec(model, src)
     if isinstance(model, _models.DEC) and config.mode == "train":
         src = _models.AEC(
             input_hw=model.input_hw,
@@ -269,6 +271,7 @@ def _train_aec_run(config, hp, tra_x, val_x):
         # `resume = True` in the ini
         snapshot_path=os.path.join(config.savepath_chkpnt, "SNAPSHOT"),
         resume=bool(getattr(config, "resume", False)),
+        precision=_precision(config),
     )
     _save_aec_artifacts(config, out)
     out["savepath_run"] = config.savepath_run
@@ -344,6 +347,7 @@ def _train_dec_run(config, hp, tra_x):
         initial=_dec_initial(config, n_clusters),
         snapshot_path=os.path.join(config.savepath_chkpnt, "SNAPSHOT"),
         resume=bool(getattr(config, "resume", False)),
+        precision=_precision(config),
     )
     _save_dec_artifacts(config, out)
     out["savepath_run"] = config.savepath_run
@@ -456,6 +460,7 @@ def _train_stream(config):
                 ),
                 make_val_loader=lambda: make_loader(list(idx_val)),
                 snapshot_path=snapshot, resume=resume,
+                precision=_precision(config),
             )
             _save_aec_artifacts(config, out)
         else:
@@ -468,6 +473,7 @@ def _train_stream(config):
                 model, _train.create_train_state(model, lr), make_loader,
                 ds.n_windows, _dec_config(config, hp, n_clusters),
                 initial=initial, snapshot_path=snapshot, resume=resume,
+                precision=_precision(config),
             )
             _save_dec_artifacts(config, out)
         out["savepath_run"] = config.savepath_run

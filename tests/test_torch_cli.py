@@ -304,7 +304,6 @@ def test_run_dc_argv_and_checks(tmp_path, cube, capsys):
     ({"km_metrics": "True"}, "item 16"),
     ({"loadmode": "stream", "datafiletype": "h5"}, "item 14"),
     ({"datafiletype": "h5"}, "item 14"),
-    ({"arch": "packed"}, "item 8"),
 ])
 def test_not_ported_raise(tmp_path, cube, params, item):
     """Each option the port does not run raises NotImplementedError naming

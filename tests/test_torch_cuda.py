@@ -184,6 +184,37 @@ def test_fused_frontend_on_card_matches_cpu(cuda_device):
                                rtol=0, atol=STFT_ATOL)
 
 
+@pytest.mark.parametrize("name", ["PackedAEC", "PackedDEC", "UNet"])
+def test_arch_forward_on_card_matches_cpu(cuda_device, name):
+    """The packed and UNet models from the same weights on the card (cuDNN
+    convolutions, transposed convolutions and max-pools, cuBLAS dense
+    layers, float32 with TF32 off) and on the CPU: rtol 1e-4 / atol 1e-5,
+    the models' parity tolerance; under BF16 the card's outputs are
+    bfloat16 and within 0.05 of float32 (the JAX bf16 bound)."""
+    from spectrogram_cube_clustering_tpu_torch.core import BF16, fp32_policy
+
+    fp32_policy()
+    gen = torch.Generator().manual_seed(6)
+    cls = getattr(models, name)
+    cpu = cls(3, generator=gen) if name == "PackedDEC" else cls(generator=gen)
+    card = cls(3) if name == "PackedDEC" else cls()
+    card.load_state_dict(cpu.state_dict())
+    card.to(cuda_device)
+    x = _randn((300, 4, 101, 1), torch.device("cpu"), seed=3)
+    with torch.no_grad():
+        want = cpu(x)
+        got = card(x.to(cuda_device))
+        with BF16.autocast(cuda_device):
+            half = card(x.to(cuda_device))
+    assert not any(tf32_flags().values())
+    for g, w, h in zip(got, want, half):
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=1e-4,
+                                   atol=1e-5)
+        np.testing.assert_allclose(h.float().cpu().numpy(), w.numpy(),
+                                   rtol=0, atol=0.05)
+    assert half[-1].dtype == torch.bfloat16
+
+
 def _tone_windows(n_windows, seed=0):
     """Normalized windows of a waveform of five tones, one per 400-sample
     stretch (computed on the CPU)."""
@@ -705,11 +736,18 @@ def test_passthrough_tiles_are_bit_equal(cuda_device, b, t, hop, ratio,
 
 
 def test_passthrough_of_no_samples_is_zeros(cuda_device):
-    """T = 0: every tile stages zeros, as the plain version pads."""
-    x = torch.empty((2, 0), device=cuda_device)
+    """T = 0 is refused before any launch (the launcher refuses it too);
+    one sample stages that sample and zeros past it, as the plain version
+    pads."""
+    before = stv.LAUNCHES.get(stv.PASSTHROUGH, 0)
+    with pytest.raises(ValueError, match="empty"):
+        stv.passthrough_cuda(torch.empty((2, 0), device=cuda_device),
+                             100, 2, 3, 128)
+    assert stv.LAUNCHES.get(stv.PASSTHROUGH, 0) == before
+    x = torch.ones((2, 1), device=cuda_device)
     got = stv.passthrough_cuda(x, 100, 2, 3, 128)
     assert torch.equal(got, stv.passthrough_plain(x, 100, 2, 3, 128))
-    assert not got.any()
+    assert float(got.sum()) == 2.0
 
 
 def test_passthrough_out_of_range_raises_before_launch(cuda_device):

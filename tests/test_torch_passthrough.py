@@ -108,11 +108,14 @@ def test_geometry_past_32_bits_is_refused(kw):
 
 
 def test_no_samples_stage_zeros():
-    """T = 0 is in range: every tile stages zeros, so the model and the
-    plain version give zero rows."""
-    stv.check_passthrough_range(2, 0, 3, 128, 100, 2)
-    x = np.zeros((2, 0), np.float32)
+    """T = 0 is refused before any launch (ValueError, as every refused
+    geometry), so no tile ever stages an empty row; one sample is in
+    range, and its tiles stage that sample and zeros past it."""
+    with pytest.raises(ValueError, match="empty"):
+        stv.check_passthrough_range(2, 0, 3, 128, 100, 2)
+    stv.check_passthrough_range(2, 1, 3, 128, 100, 2)
+    x = np.ones((2, 1), np.float32)
     out, written, *_ = kernel_model(x, 100, 2, 3, 128)
     want = stv.passthrough_plain(torch.from_numpy(x), 100, 2, 3, 128)
-    assert np.array_equal(out, want.numpy()) and not out.any()
+    assert np.array_equal(out, want.numpy()) and out.sum() == 2
     assert (written == 1).all()

@@ -151,11 +151,16 @@ def test_frontend_refuses_what_jax_refuses(predictors):
 
 def test_options_not_ported_raise(trained):
     _, sd, _ = trained
-    for kw in ({"mesh": object()}, {"arch": "packed"}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            serve.DECPredictor(sd, 3, device="cpu", **kw)
-        with pytest.raises(NotImplementedError, match="not ported"):
-            serve.AECEncoder(sd, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        serve.DECPredictor(sd, 3, device="cpu", mesh=object())
+    with pytest.raises(NotImplementedError, match="not ported"):
+        serve.AECEncoder(sd, device="cpu", mesh=object())
+    # arch='packed' is ported (tests/test_torch_arch_workflow.py); a parity
+    # checkpoint served as packed is refused as by the JAX predictors
+    with pytest.raises(ValueError, match="missing"):
+        serve.DECPredictor(sd, 3, device="cpu", arch="packed")
+    with pytest.raises(ValueError, match="missing"):
+        serve.AECEncoder(sd, device="cpu", arch="packed")
     # the wire dtypes are ported (tests/test_torch_wire.py); an unknown
     # one is refused as by the JAX predictors
     with pytest.raises(ValueError, match="transfer_dtype"):

@@ -290,9 +290,6 @@ def _not_ported_calls():
                                     fname_dataset="unused.npy", **kw)
         workflow.load_windows(cfg, split=True)
 
-    def model(**kw):
-        workflow.make_model(types.SimpleNamespace(model="AEC", **kw))
-
     return {
         "layout_mesh": (lambda: train.make_batched_data(x, 2, mesh=object()),
                         "item 11"),
@@ -300,9 +297,6 @@ def _not_ported_calls():
         "stream": (lambda: _stream_dataset(
             types.SimpleNamespace(datafiletype="h5", loadmode="stream",
                                   fname_dataset="unused.h5")), "item 14"),
-        "packed": (lambda: model(arch="packed"), "item 8"),
-        "unet": (lambda: model(arch="UNet"), "item 8"),
-        "bf16": (lambda: model(precision="bf16"), "float32 only"),
     }
 
 

@@ -242,6 +242,63 @@ def test_sharp_q_moves_with_the_wire_as_in_jax(trained, wire):
                                rtol=0, atol=1e-5)
 
 
+@pytest.fixture(scope="module")
+def trained_dec():
+    """A port DEC trained on five tone kinds (AEC 10 epochs, k-means init,
+    DEC 30 epochs with gamma 1 at batch 8: enough steps on 198 windows to
+    sharpen q, median top value ~0.75 against 0.2 uniform), its JAX
+    params (`utils.torch_port.dec_params_from_torch`), and a two-channel
+    waveform of those kinds."""
+    from spectrogram_cube_clustering_tpu.utils import torch_port
+    from spectrogram_cube_clustering_tpu_torch import models, signal, train
+    from torch_train_common import _waveform
+
+    # one intra-op thread: under the suite's parallel workers more only
+    # contend for the cores (torch_train_common.one_torch_thread)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    wave, _ = _waveform(2, 40_000, seed=0)
+    x = signal.spectrogram_windows(torch.from_numpy(wave))
+    data = train.make_batched_data(x, 8)
+    gen = torch.Generator().manual_seed(1)
+    aec = models.AEC(generator=gen)
+    train.train_aec(aec, train.create_train_state(aec, 1e-3), data, None,
+                    train.AECConfig(n_epochs=10, early_stopping=False))
+    dec = models.load_encoder_decoder_from_aec(
+        models.DEC(5, generator=gen), aec)
+    train.train_dec(dec, train.create_train_state(dec, 2e-3), data,
+                    train.DECConfig(n_clusters=5, n_epochs=30, gamma=1.0,
+                                    init="kmeans", kmeans_n_init=10,
+                                    tol=0.0))
+    torch.set_num_threads(threads)
+    sd = {k: v.detach().clone() for k, v in dec.state_dict().items()}
+    return torch_port.dec_params_from_torch(sd), sd, wave[:, :20_000]
+
+
+@pytest.mark.parametrize("wire", WIRES)
+def test_trained_q_moves_with_the_wire_as_in_jax(trained_dec, wire):
+    """At a trained DEC's sharp q, the fused route's gap to the float32
+    request over each wire is the JAX frontend's own gap within atol 1e-5
+    (both restore the same encoded samples; the rest is float32
+    rounding), and q itself agrees within 1e-5: the gap that phase 4g
+    reads on the card belongs to the encoding, not to the port."""
+    params, sd, wave = trained_dec
+    got, want = {}, {}
+    for w in (None, wire):
+        jp = jserve.DECPredictor(params, 5, max_batch=64, transfer_dtype=w)
+        tp = serve.DECPredictor(sd, 5, max_batch=64, transfer_dtype=w,
+                                device="cpu")
+        got[w] = serve.WaveformFrontend(tp, chunk_samples=8_000)(wave)["q"]
+        want[w] = jserve.WaveformFrontend(jp, chunk_samples=8_000)(wave)["q"]
+    assert np.median(got[None].max(axis=1)) > 0.7  # a sharp q
+    gap, jgap = got[wire] - got[None], want[wire] - want[None]
+    print(f"trained DEC, {wire}: port gap {np.abs(gap).max():.4e}, "
+          f"JAX gap {np.abs(jgap).max():.4e}, their difference "
+          f"{np.abs(gap - jgap).max():.3e}")
+    np.testing.assert_allclose(got[wire], want[wire], rtol=0, atol=1e-5)
+    np.testing.assert_allclose(gap, jgap, rtol=0, atol=1e-5)
+
+
 def test_serve_cli_passes_the_wire(trained, tmp_path, monkeypatch):
     """`scc-serve-torch --transfer-dtype int8` serves a predictor whose
     requests cross the int8 wire."""
