@@ -93,6 +93,34 @@ the script exits non-zero:
    run's AEC losses beside 4c's float32 ones, and the train samples/s of
    one AEC epoch of the parity AEC, the packed AEC, the UNet and the
    parity AEC under bf16 on the same 41,936 windows;
+4i. t-SNE and figures (`cluster/tsne_torch.py`, no kernel of its own:
+   torch matmuls and reductions, TF32 off): (a) the exact path at
+   tsne_torch's cap, 30,000 points of five seeded Gaussian classes in 9
+   dimensions (the AEC latent width), 2,000 iterations: P build and loop
+   times by CUDA events after a warm-up, the wall, the peak device memory
+   of the build (<= 3x P's bytes) and of the loop (<= P + 8 chunk M 4 B,
+   7.86e9 B), k-means NMI against the classes >= 0.95; (b) the landmark
+   path, 200,000 points with 8,000 landmarks: wall, NMI >= 0.95; (c) the
+   card against the CPU on 1,000 points from the same y0: P's largest
+   relative error against a float64 oracle at most 1.5x the CPU's (the
+   float32 P of these classes is known only to ~1e-3: the CPU alone,
+   summing in another order, moves entries that far; the gap at rtol
+   1e-5 is printed), from the CPU's P after 5 iterations y within rtol
+   1e-3 / atol 1e-6 and the KL within rtol 1e-3 (the JAX package's
+   chunked-against-dense tolerances), after 500 iterations NMI between
+   the two embeddings' k-means >= 0.99; (d) `workflow.fit._tsne` with
+   `tsne_backend = jax` on the DEC latents of 4c's waveform run (41,936
+   windows, K1 at its head; the landmark path with 30,000 landmarks):
+   the share of each point's 10 nearest embedding neighbours that carry
+   its DEC label >= 0.90; the k-means NMI against the DEC labels is
+   printed, not gated, since t-SNE splits each of these classes into
+   islands, as the JAX package's t-SNE and sklearn's do on the same
+   latents (`tools/tsne_reference_nmi.py` on what `--save-tsne-inputs
+   PATH` writes); (e) where matplotlib imports, run-dc's DEC predict
+   with `figures = True` and `tsne_backend = jax` on 4c's DEC run must
+   write every figure file of the JAX tree; where it does not (the
+   card's machine), run-dc with figures must raise ImportError naming
+   matplotlib and leave the run dir as it was;
 4d. variants: the STFT precision and interior kernels
    (`csrc/stft_variants.cu`) through their entry points: K1's
    `precision="default"` (TF32), the folded STFT at HIGHEST, DEFAULT and
@@ -809,8 +837,8 @@ def phase_workflow(device, gen, card, cuda_stft, spectrogram_plain,
     cube written by the port's `build_cube` (source A) and from the raw
     waveform (source B), both left in `tmp` for the stream phase. Returns
     the STFT launches of both, the largest gap of the written cube from the
-    plain STFT of its waveform, and each source's ini keys and planted
-    kinds."""
+    plain STFT of its waveform, each source's ini keys and planted kinds,
+    and the STFT launches of the waveform stages."""
     from spectrogram_cube_clustering_tpu_torch import cli
     from spectrogram_cube_clustering_tpu_torch.data import zarrlite
 
@@ -874,7 +902,7 @@ def phase_workflow(device, gen, card, cuda_stft, spectrogram_plain,
     check(wave_launches >= 4, "STFT kernel in the waveform stages")
     launches += wave_launches
     check_dec_predict(pred, sources["waveform"][1], "waveform")
-    return launches, cube_err, sources
+    return launches, cube_err, sources, wave_launches
 
 
 #: 4g: the stream stages' ini keys
@@ -1894,9 +1922,291 @@ def phase_loose_precision(cuda_stft) -> dict:
     return out
 
 
+#: 4i: the exact path at tsne_torch's cap, d = 9 (the AEC latent width);
+#: the landmark path's M and landmarks; the CPU comparison's M
+TSNE_CAP = 30_000
+TSNE_LANDMARK = (200_000, 8_000)
+TSNE_CPU_M = 1_000
+TSNE_CLASSES = 5
+TSNE_FIGURES = ("silh_score_Z.png", "silh_score_X.png", "T-SNE/t-SNE.png",
+                "Gallery/gallery.png", "LatentSpace/latent.png",
+                "CDF/cdf.png", "PDF/pdf.png")
+
+
+def planted_classes(m: int, seed: int, d: int = 9, k: int = TSNE_CLASSES):
+    """m points in d dimensions from k seeded Gaussian classes (unit
+    variance, centres drawn with scale 8, as tests/test_cluster.py's
+    blobs): float32 points and their classes."""
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(k, d)) * 8
+    y = rng.integers(0, k, m)
+    return (centers[y] + rng.normal(size=(m, d))).astype(np.float32), y
+
+
+def embedding_nmi(emb, truth, device) -> float:
+    """NMI between the port's k-means (10 restarts) of a 2-D embedding and
+    `truth`, with as many clusters as truth has labels."""
+    from spectrogram_cube_clustering_tpu_torch import cluster
+
+    k = len(np.unique(truth))
+    labels, _ = cluster.kmeans(np.asarray(emb, np.float32), k, n_init=10,
+                               device=device)
+    return cluster.nmi(truth, labels.cpu().numpy())
+
+
+def neighbour_purity(emb, labels, device, k: int = 10,
+                     rows: int = 4096) -> float:
+    """The share of each point's k nearest neighbours in an embedding
+    that carry its label, over every point (exact k-NN on the card in
+    blocks of `rows` queries)."""
+    e = torch.from_numpy(np.asarray(emb, np.float32)).to(device)
+    lab = torch.from_numpy(np.asarray(labels)).to(device)
+    same = 0
+    for lo in range(0, len(e), rows):
+        d2 = torch.cdist(e[lo:lo + rows], e)
+        d2.diagonal(offset=lo).fill_(float("inf"))  # not its own neighbour
+        nn = torch.topk(d2, k, dim=1, largest=False).indices
+        same += int((lab[nn] == lab[lo:lo + rows, None]).sum())
+    return same / (len(e) * k)
+
+
+def _tree(path: str) -> dict:
+    """Every file under path with its size and modification time."""
+    out = {}
+    for d, _, files in os.walk(path):
+        for f in files:
+            st = os.stat(os.path.join(d, f))
+            out[os.path.relpath(os.path.join(d, f), path)] = (
+                st.st_size, st.st_mtime_ns)
+    return out
+
+
+def phase_tsne(device, card, tmp: str, sources: dict, seed: int,
+               wave_launches: int, save_inputs: Optional[str] = None
+               ) -> None:
+    """4i: the on-device t-SNE (`cluster/tsne_torch.py`) and the figures.
+    (a) the exact path at M = TSNE_CAP planted points, 2,000 iterations:
+    P build and loop times (CUDA events after a warm-up), the wall, peak
+    device memory of the build (<= 3 P) and of the loop (<= P + 8 chunk M
+    4 B), NMI of its k-means against the classes >= 0.95; (b) the
+    landmark path at TSNE_LANDMARK: wall, NMI >= 0.95; (c) the card
+    against the CPU at M = TSNE_CPU_M from the same y0: P against a
+    float64 oracle (the card's error at most 1.5x the CPU's), from one P
+    after 5 iterations y within rtol 1e-3 / atol 1e-6 and the KL within
+    rtol 1e-3, after 500 iterations NMI between the two embeddings'
+    k-means >= 0.99; (d) `workflow.fit._tsne` with tsne_backend = jax on
+    the DEC latents of 4c's waveform run (K1 at its head): the share of
+    each point's 10 nearest embedding neighbours with its DEC label >=
+    0.90, the k-means NMI against the DEC labels printed (t-SNE splits
+    each of these classes into islands, as the JAX package's t-SNE and
+    sklearn's do: `tools/tsne_reference_nmi.py` on what `save_inputs`
+    receives); (e) where matplotlib imports, run-dc's DEC predict with
+    figures on 4c's DEC run writes every figure of the JAX tree; where it
+    does not, run-dc with figures raises ImportError naming it and writes
+    nothing."""
+    import importlib
+    import importlib.util
+    import types
+
+    from spectrogram_cube_clustering_tpu_torch import cli, cluster
+    from spectrogram_cube_clustering_tpu_torch.utils import config_training
+    from spectrogram_cube_clustering_tpu_torch.workflow.fit import _tsne
+
+    T = importlib.import_module(
+        "spectrogram_cube_clustering_tpu_torch.cluster.tsne_torch")
+    cpu = torch.device("cpu")
+
+    # warm-up: cuBLAS, the allocator and every kernel of the loop
+    warm, _ = planted_classes(2_000, seed)
+    T.tsne_torch(warm, n_iter=300, device=device)
+    torch.cuda.synchronize()
+
+    # (a) the exact path at the cap
+    x, truth = planted_classes(TSNE_CAP, seed + 1)
+    m = len(x)
+    perplexity, lr = T.default_hyperparameters(m)
+    chunk = T.chunk_rows(m)
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()  # earlier phases' tensors
+    t0 = time.perf_counter()
+    marks[0].record()
+    p = T._joint_p(torch.from_numpy(x).to(device), perplexity, chunk=chunk)
+    marks[1].record()
+    torch.cuda.synchronize()
+    build_peak = torch.cuda.max_memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    marks[2].record()
+    y0 = T.initial_embedding(m, seed, device)
+    (y, _, _), _ = T._optimize(
+        p, (y0, torch.zeros_like(y0), torch.ones_like(y0)), 0, lr, 20.0,
+        2000, chunk=chunk)
+    marks[3].record()
+    emb = y.cpu().numpy()
+    wall = time.perf_counter() - t0
+    loop_peak = torch.cuda.max_memory_allocated() - base
+    p_bytes = p.numel() * p.element_size()
+    del p, y, y0
+    build_ms = marks[0].elapsed_time(marks[1])
+    loop_ms = marks[2].elapsed_time(marks[3])
+    loop_cap = p_bytes + 8 * chunk * m * 4
+    score = embedding_nmi(emb, truth, device)
+    print(f"tsne exact on {card}: M {m}, d {x.shape[1]}, chunk {chunk}, "
+          f"perplexity {perplexity}, 2000 iterations: P build "
+          f"{build_ms:.1f} ms, loop {loop_ms:.1f} ms "
+          f"({loop_ms / 2000:.3f} ms per iteration), wall {wall:.3f} s; "
+          f"P {p_bytes} B; peak device memory (torch.cuda."
+          f"max_memory_allocated above the phase's start) build "
+          f"{build_peak} B (gate 3 P = {3 * p_bytes}), loop {loop_peak} B "
+          f"(gate P + 8 chunk M 4 B = {loop_cap}); k-means NMI vs the "
+          f"classes {score:.4f}", flush=True)
+    check(np.isfinite(emb).all() and emb.shape == (m, 2), "tsne exact emb")
+    check(build_peak <= 3 * p_bytes, f"tsne build peak {build_peak}")
+    check(loop_peak <= loop_cap, f"tsne loop peak {loop_peak}")
+    check(score >= 0.95, f"tsne exact NMI {score}")
+
+    # (b) the landmark path
+    m_big, landmarks = TSNE_LANDMARK
+    x, truth = planted_classes(m_big, seed + 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    marks[0].record()
+    emb = T.tsne_torch(x, max_samples=landmarks, device=device)
+    marks[1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    score = embedding_nmi(emb, truth, device)
+    print(f"tsne landmark on {card}: M {m_big}, {landmarks} landmarks, "
+          f"2000 iterations, k = 10: wall {wall:.3f} s (CUDA events "
+          f"{marks[0].elapsed_time(marks[1]):.1f} ms); k-means NMI vs the "
+          f"classes {score:.4f}", flush=True)
+    check(np.isfinite(emb).all() and emb.shape == (m_big, 2),
+          "tsne landmark emb")
+    check(score >= 0.95, f"tsne landmark NMI {score}")
+
+    # (c) the card against the CPU, from the same y0. P in float32 is
+    # known only to the rounding of its sums: its squared distances come
+    # from the |x|^2 - 2 x.y + |y|^2 expansion and its bisection from
+    # row sums, so the CPU alone, summing the same points in another
+    # order, moves entries by up to ~1e-3 on these classes. P is held to
+    # a float64 oracle instead: the card's largest relative error at
+    # most 1.5x the CPU's. The optimiser is held from one P (the CPU's).
+    x, truth = planted_classes(TSNE_CPU_M, seed + 3)
+    m = len(x)
+    perplexity, lr = T.default_hyperparameters(m)
+    chunk = T.chunk_rows(m)
+    p_c = T._joint_p(torch.from_numpy(x), perplexity, chunk=chunk)
+    p_g = T._joint_p(torch.from_numpy(x).to(device), perplexity,
+                     chunk=chunk).cpu()
+    p_64 = T._joint_p(torch.from_numpy(x).double(), perplexity, chunk=chunk)
+    real = p_64 > 1e-10  # above the 1e-12 floor's neighbourhood
+
+    def worst(p):
+        return float(((p - p_64).abs() / p_64)[real].max())
+
+    err_c, err_g = worst(p_c), worst(p_g)
+    p_gap = float(((p_g - p_c).abs() / p_c)[real].max())
+    n_out = int(((p_g - p_c).abs() > 1e-12 + 1e-5 * p_c.abs()).sum())
+    side = {}
+    for name, dev in (("cpu", cpu), ("card", device)):
+        y0 = T.initial_embedding(m, seed, dev)
+        (y, _, _), kl = T._optimize(
+            p_c.to(dev), (y0, torch.zeros_like(y0), torch.ones_like(y0)), 0,
+            lr, 20.0, 5, chunk=chunk, with_kl=True)
+        side[name] = (y.cpu(), kl.cpu())
+    (y_c, kl_c), (y_g, kl_g) = side["cpu"], side["card"]
+    y_ok = bool(torch.allclose(y_g, y_c, rtol=1e-3, atol=1e-6))
+    kl_err = float(((kl_g - kl_c).abs() / kl_c.abs()).max())
+    emb_c = T.tsne_torch(x, n_iter=500, seed=seed, device=cpu)
+    emb_g = T.tsne_torch(x, n_iter=500, seed=seed, device=device)
+    lab_c, _ = cluster.kmeans(emb_c, TSNE_CLASSES, n_init=10, device=device)
+    score = embedding_nmi(emb_g, lab_c.cpu().numpy(), device)
+    print(f"tsne card vs CPU on {card}: M {m}: P largest relative error vs "
+          f"float64 card {err_g:.3e}, CPU {err_c:.3e}; card vs CPU largest "
+          f"relative gap {p_gap:.3e}, {n_out} of {m * m} entries outside "
+          f"rtol 1e-5 / atol 1e-12; from the CPU's P, after 5 iterations y "
+          f"max abs gap {float((y_g - y_c).abs().max()):.3e} (|y| max "
+          f"{float(y_c.abs().max()):.3e}), KL largest relative gap "
+          f"{kl_err:.3e}; after 500 iterations NMI between the embeddings' "
+          f"k-means {score:.4f}", flush=True)
+    check(err_g <= 1.5 * err_c, f"tsne P card error {err_g} vs CPU {err_c}")
+    check(y_ok, "tsne y card vs CPU after 5 iterations")
+    check(kl_err <= 1e-3, f"tsne KL card vs CPU {kl_err}")
+    check(score >= 0.99, f"tsne card vs CPU NMI {score}")
+
+    # (d) on the main path: the DEC latents of 4c's waveform run
+    check(wave_launches >= 1, "K1 in 4c's waveform run")
+    [dec_run] = _dirs_holding(f"{tmp}/B", "DEC_Params_Final.pt")
+    z = np.load(os.path.join(dec_run, "Prediction", "Z_DEC.npy"))
+    labels = np.load(os.path.join(dec_run, "Prediction", "labels_DEC.npy"))
+    config = types.SimpleNamespace(tsne_backend="jax", device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    marks[0].record()
+    emb = _tsne(config, z)
+    marks[1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    score = embedding_nmi(emb, labels, device)
+    purity = neighbour_purity(emb, labels, device)
+    print(f"tsne main path on {card}: workflow.fit._tsne (tsne_backend = "
+          f"jax) of 4c's waveform DEC latents {z.shape}: wall {wall:.3f} s "
+          f"(CUDA events {marks[0].elapsed_time(marks[1]):.1f} ms); "
+          f"10-NN label purity {purity:.4f} (latents "
+          f"{neighbour_purity(z, labels, device):.4f}); k-means NMI vs the "
+          f"DEC labels {score:.4f} (not gated: the classes split into "
+          f"islands)", flush=True)
+    if save_inputs:
+        os.makedirs(os.path.dirname(os.path.abspath(save_inputs)),
+                    exist_ok=True)
+        np.savez_compressed(save_inputs, z=z, labels=labels, emb=emb)
+        print(f"tsne main path inputs written to {save_inputs}", flush=True)
+    check(np.isfinite(emb).all() and emb.shape == (len(z), 2),
+          "tsne main path emb")
+    check(purity >= 0.90, f"tsne main path 10-NN purity {purity}")
+
+    # (e) the figures: drawn where matplotlib imports, refused where not
+    universal = sources["waveform"][0]
+    ini = config_training(
+        {"savepath": f"{tmp}/B/Outputs", "configpath": f"{tmp}/figures",
+         "transform": "sample_norm_cent", **universal},
+        {"tb": "False", "show": "False", "figures": "True",
+         "tsne_backend": "jax", "model": "DEC", "mode": "predict",
+         "saved_weights": os.path.join(dec_run, "DEC_Params_Final.pt")})
+    pred = os.path.join(dec_run, "Prediction")
+    if importlib.util.find_spec("matplotlib") is not None:
+        t0 = time.perf_counter()
+        cli.run_dc(init_path=ini)
+        missing = [f for f in TSNE_FIGURES
+                   if not os.path.exists(os.path.join(pred, f))]
+        print(f"tsne figures on {card}: run-dc DEC predict with figures "
+              f"{time.perf_counter() - t0:.3f} s; missing {missing}",
+              flush=True)
+        check(not missing, f"predict figures missing {missing}")
+    else:
+        before = _tree(dec_run)
+        try:
+            cli.run_dc(init_path=ini)
+        except ImportError as exc:
+            said = str(exc)
+        else:
+            said = None
+        unchanged = _tree(dec_run) == before
+        print(f"tsne figures on {card}: no matplotlib; run-dc with figures "
+              f"raised ImportError {said!r}; the run dir unchanged "
+              f"{unchanged}", flush=True)
+        check(said is not None and "matplotlib" in said,
+              f"run-dc figures without matplotlib: {said}")
+        check(unchanged, "run-dc figures wrote into the run dir")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--save-tsne-inputs", metavar="PATH.npz",
+                    help="write 4i(d)'s DEC latents, labels and embedding "
+                    "for tools/tsne_reference_nmi.py")
     ap.add_argument("--save-bf16-inputs", metavar="PATH.npz",
                     help="write 4h's bf16 epoch windows and seeded AEC "
                     "weights for tools/bf16_reference_gap.py")
@@ -2044,7 +2354,7 @@ def main() -> int:
                                     spectrogram_plain, args.seed)
     with tempfile.TemporaryDirectory() as tmp:
         # 4c. the 5-stage CLI workflow, from a Zarr cube and a raw waveform
-        wf_launches, cube_err, sources = phase_workflow(
+        wf_launches, cube_err, sources, wave_launches = phase_workflow(
             device, gen, card, cuda_stft, spectrogram_plain, tmp)
         # 4g. the same stages with loadmode = stream from 4c's sources, and
         # the wire dtypes
@@ -2054,6 +2364,9 @@ def main() -> int:
         arch_launches = phase_architectures(device, card, cuda_stft,
                                             spectrogram_plain, tmp, sources,
                                             args.save_bf16_inputs)
+        # 4i. the on-device t-SNE, and the figures, on 4c's DEC run
+        phase_tsne(device, card, tmp, sources, args.seed, wave_launches,
+                   args.save_tsne_inputs)
     max_err = max(max_err, cube_err)
     print(f"STFT kernel launches: serving path {launches}, training path "
           f"{train_launches}, workflow {wf_launches}, architectures "

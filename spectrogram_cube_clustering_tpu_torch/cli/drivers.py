@@ -5,8 +5,12 @@ scripts AEC_train.py / GMM_centroids.py / DEC_train.py).
 
 Each writes `Config/init_<mode>.ini` from its flags and runs the stage
 like `run-dc-torch`. Batch sizes count spectrogram windows, not Zarr
-items. The drivers write `figures = False` (figures are ROADMAP Queue 1
-item 9); `--tb` raises NotImplementedError (TensorBoard, item 15).
+items. Like the JAX drivers they leave `figures` at its default (True):
+`aec-train`, `gmm-centroids` and `dec-predict` draw the JAX package's
+figures, which need matplotlib and scikit-learn (`run-dc-torch` raises
+ImportError naming a missing one first). The card's machine has
+neither: there, write the ini with `figures = False` and run `run-dc-torch`.
+`--tb` raises NotImplementedError (TensorBoard, ROADMAP Queue 1 item 15).
 `--device cpu` runs on the CPU; the default is the card.
 """
 
@@ -61,8 +65,8 @@ def _universal(args) -> dict:
 
 
 def _run(args, parameters, hp) -> None:
-    parameters.update({"send_message": "False", "figures": "False",
-                       "tb": str(args.tb), "show": str(args.verbose)})
+    parameters.update({"send_message": "False", "tb": str(args.tb),
+                       "show": str(args.verbose)})
     ini = config_training(_universal(args), parameters, hp)
     print(f"Config written to {os.path.abspath(ini)}")
     run_dc(init_path=ini)

@@ -7,10 +7,14 @@ the inputs, runs train / predict / fit, and notifies on completion. The
 device is the card unless `--device cpu` (or `device = cpu` in the ini)
 asks for the CPU; `--device N` picks card N.
 
-The ini must say `figures = False`: the figures and t-SNE are ROADMAP
-Queue 1 item 9, and `figures` defaults to True as in the JAX package, so
-without it the run raises NotImplementedError. `tb = True` raises too
-(TensorBoard, item 15).
+`figures` defaults to True, as in the JAX package: the stages then draw
+the JAX package's figures (workflow/{train,fit,predict}.py), which need
+matplotlib, and scikit-learn for the t-SNE unless `tsne_backend = jax`
+selects the port's on-device one. Where one of them does not import, the
+run raises ImportError naming it before it writes anything; the card's
+machine has neither, so there the ini says `figures = False`, or
+`tsne_backend = jax` where matplotlib is installed. `tb = True` raises
+NotImplementedError (TensorBoard, ROADMAP Queue 1 item 15).
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ from typing import Optional, Union
 from spectrogram_cube_clustering_tpu_torch import workflow
 from spectrogram_cube_clustering_tpu_torch.utils.config import Configuration
 from spectrogram_cube_clustering_tpu_torch.workflow.train import (
-    _figures_not_ported,
+    check_figure_packages,
     check_not_ported,
 )
 
@@ -61,7 +65,7 @@ def main(init_path: Optional[str] = None,
     check_not_ported(config)
     figures = bool(getattr(config, "figures", True))
     if figures:
-        raise _figures_not_ported("figures=True")
+        check_figure_packages(config)
     config.init_exp_env()
     config.save_exp_config()
 

@@ -5,9 +5,14 @@ the JAX package's `workflow/fit.py`; reference Cluster/production.py:
 Sweeps `config.hp['n_clusters']`; each run fits a k-means-initialized
 full-covariance GMM to `Prediction/Z_AEC.npy` on `config.device` and
 writes `<AEC run>/GMM/n_clusters=K/` with `labels.npy`, `centroids.npy`,
-`Labels.csv` and a `Z_AEC.path` pointer back to the latents. The t-SNE
-figure is ROADMAP Queue 1 item 9 and the cluster-count diagnostics
-(`km_metrics`) item 16; both raise.
+`Labels.csv` and a `Z_AEC.path` pointer back to the latents. With
+`figures=True` (the default) one t-SNE of the latents serves the whole
+sweep, and each run writes it coloured by its labels as `t-SNE.png`: the
+ini's `tsne_backend = jax` selects the port's on-device t-SNE
+(`cluster.tsne_torch` on `config.device`; the value keeps the JAX
+package's spelling, since one ini drives both packages), any other value
+the sklearn one. The cluster-count diagnostics (`km_metrics`) are ROADMAP
+Queue 1 item 16 and raise.
 """
 
 from __future__ import annotations
@@ -16,25 +21,44 @@ import os
 from typing import Dict, List
 
 import numpy as np
+import torch
 
 from spectrogram_cube_clustering_tpu_torch import cluster as _cluster
+from spectrogram_cube_clustering_tpu_torch.analysis import plotting
+from spectrogram_cube_clustering_tpu_torch.core.device import resolve_device
 from spectrogram_cube_clustering_tpu_torch.utils.history import save_labels
 from spectrogram_cube_clustering_tpu_torch.workflow.data import load_data
 from spectrogram_cube_clustering_tpu_torch.workflow.train import (
-    _figures_not_ported,
+    check_figure_packages,
     check_not_ported,
     write_z_pointer,
 )
 
 
+def _tsne(config, z) -> np.ndarray:
+    """t-SNE of the latents z (M, D) through the configured backend:
+    `tsne_backend = jax` runs `cluster.tsne_torch` on `config.device`,
+    anything else the sklearn backend on the host."""
+    z = z.cpu().numpy() if isinstance(z, torch.Tensor) else np.asarray(z)
+    seed = int(getattr(config, "seed", 2009) or 2009)
+    if getattr(config, "tsne_backend", None) == "jax":
+        return _cluster.tsne_torch(
+            z, seed=seed,
+            device=resolve_device(getattr(config, "device", None)))
+    return _cluster.tsne(z)
+
+
 def gmm_fit(config, figures: bool = True, mesh=None) -> List[Dict]:
     """Run the n_clusters sweep. Returns per-run dicts of numpy labels and
-    centroids. `figures=True` raises (ROADMAP Queue 1 item 9)."""
+    centroids."""
     check_not_ported(config, mesh)
     if figures:
-        raise _figures_not_ported("gmm_fit(figures=True) (the t-SNE figure)")
+        check_figure_packages(config)
     z = load_data(config)
     print(f"Dataset has {len(z)} samples.")
+    # one embedding for the whole sweep: z and the seed do not change
+    # between the swept K, only the colouring does
+    tsne_results = _tsne(config, z) if figures else None
     z_src = os.path.join(
         os.path.abspath(os.path.join(config.saved_weights, os.pardir)),
         "Prediction", "Z_AEC.npy",
@@ -58,6 +82,10 @@ def gmm_fit(config, figures: bool = True, mesh=None) -> List[Dict]:
         # the latents these were fit on: a pointer, not a copy, which DEC
         # training carries into its own run (train._record_gmm_provenance)
         write_z_pointer(config.savepath_run, z_src)
+        if tsne_results is not None:
+            fig = plotting.view_tsne(tsne_results, labels, "GMM")
+            fig.savefig(os.path.join(config.savepath_run, "t-SNE.png"),
+                        dpi=300, facecolor="w")
         results.append(
             {"n_clusters": int(n_clusters), "labels": labels,
              "centroids": centroids, "savepath_run": config.savepath_run}

@@ -18,28 +18,39 @@ with `precision = bf16` the forward passes run in its autocast and every
 artifact is float32.
 
 Saved spectrogram arrays keep the reference's NCHW layout (M, 1, 4, W).
-The silhouette and t-SNE figures are ROADMAP Queue 1 item 9:
-`figures=True` raises.
+
+A DEC predict with `figures=True` (the default) also draws the JAX
+package's figures into `Prediction/`: `silh_score_Z.png` and
+`silh_score_X.png` over the scored rows, and `analyze_dec`'s families
+under `T-SNE/t-SNE.png`, `Gallery/gallery.png`, `LatentSpace/latent.png`,
+`CDF/cdf.png` and `PDF/pdf.png`, comparing DEC with the GMM run it was
+initialised from where that run's artifacts are found
+(`_gmm_figure_context`), with the centroids decoded by the trained
+model's own decoder and the t-SNE of `workflow.fit._tsne`. An AEC
+predict draws nothing. The gallery's waveform rows come from an H5
+catalog only, whose source is ROADMAP Queue 1 item 14.
 
 `loadmode = stream` never holds the windows at once: batches stream
 through the model from the prefetch loader, q, z and labels accumulate on
 the host, Xr streams into an on-disk `.npy` memmap, and the cluster
 metrics run on a seeded subsample (`silh_max_samples`, default 20,000)
-whose windows are read again. `stream_transfer_dtype` sets the wire both
-ways: the loader's batches up, the reconstructions down (restored to
-float32 on the host). The artifact names are the ram path's.
+whose windows are read again; its figures are drawn on that subsample.
+`stream_transfer_dtype` sets the wire both ways: the loader's batches up,
+the reconstructions down (restored to float32 on the host). The artifact
+names are the ram path's.
 """
 
 from __future__ import annotations
 
 import os
 from collections import deque
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from spectrogram_cube_clustering_tpu_torch import cluster as _cluster
+from spectrogram_cube_clustering_tpu_torch.analysis import plotting
 from spectrogram_cube_clustering_tpu_torch.core.device import resolve_device
 from spectrogram_cube_clustering_tpu_torch.core.precision import (
     dequant_wire,
@@ -49,15 +60,17 @@ from spectrogram_cube_clustering_tpu_torch.core.precision import (
 from spectrogram_cube_clustering_tpu_torch.utils.history import save_labels
 from spectrogram_cube_clustering_tpu_torch.workflow.data import load_data
 from spectrogram_cube_clustering_tpu_torch.workflow.train import (
-    _figures_not_ported,
+    _gmm_artifacts_dir,
     _normalize,
     _np_normalizer,
     _precision,
     _stream_dataset,
     _stream_loader_factory,
+    check_figure_packages,
     check_not_ported,
     load_aec_params,
     make_model,
+    resolve_z_aec_path,
 )
 
 PREDICT_BATCH = 4096  # reference production.py:68
@@ -87,11 +100,11 @@ def predict(config, mesh=None, figures: bool = True) -> Dict:
             "(GMM fitting/inference runs via mode='fit' / workflow.gmm_fit)"
         )
     check_not_ported(config, mesh)
+    figures = figures and config.model == "DEC"  # an AEC predict draws none
     if figures:
-        raise _figures_not_ported(
-            "predict(figures=True) (silhouette and t-SNE figures)")
+        check_figure_packages(config)
     if getattr(config, "loadmode", None) == "stream":
-        return _predict_stream(config)
+        return _predict_stream(config, figures)
     x = _normalize(config, load_data(config))
     print(f"Dataset has {len(x)} samples.")
     savepath = config.savepath_exp
@@ -118,6 +131,9 @@ def predict(config, mesh=None, figures: bool = True) -> Dict:
             silh_max_samples=int(silh_cap) if silh_cap else None,
             device=x.device,
         )
+        if figures:
+            _draw_dec_figures(config, model, precision, x.cpu().numpy(),
+                              z_np, labels_np, centroids_np, metrics)
         return {
             "q": q_np, "z": z_np, "labels": labels_np,
             "centroids": centroids_np, "metrics": metrics,
@@ -138,6 +154,119 @@ def predict(config, mesh=None, figures: bool = True) -> Dict:
     return {"z": z_np, "x_rec": xr_np, "loss": total_loss}
 
 
+# the predict figures' file names (reference models.py:663-701), one set
+# for the ram and the stream paths
+_FIGURE_FILES = {
+    "T-SNE": "t-SNE.png",
+    "Gallery": "gallery.png",
+    "LatentSpace": "latent.png",
+    "CDF": "cdf.png",
+    "PDF": "pdf.png",
+}
+
+
+def _save_predict_figures(figs: Dict, savepath: str) -> None:
+    """Write an `analyze_dec` figure dict as `<savepath>/<name>/<file>`."""
+    for name, fig in figs.items():
+        d = os.path.join(savepath, name)
+        os.makedirs(d, exist_ok=True)
+        fig.savefig(os.path.join(d, _FIGURE_FILES.get(name, f"{name}.png")),
+                    dpi=300, facecolor="w")
+
+
+def _gallery_traces(config):
+    """The gallery's waveform rows: only an H5 event catalog carries
+    waveforms (reference plotting.py:369-380), and that source is not
+    ported; every other source has none, and the gallery leaves the row
+    out."""
+    if getattr(config, "datafiletype", None) == "h5":
+        raise NotImplementedError(
+            "the H5 catalog's waveform rows are not ported: ROADMAP Queue 1 "
+            "item 14 (H5 catalog)")
+    return None
+
+
+def _gmm_figure_context(config, n_clusters: int, z_dec, labels_dec,
+                        centroids_dec):
+    """(z_a, labels_a, centroids_a) for the comparative GMM-vs-DEC figures
+    (reference models.py:659-695): the GMM labels and centroids the DEC
+    run recorded under `GMM/n_clusters=K/` and the AEC latents they were
+    fit on. Where a piece is missing or does not match (DEC initialised
+    with gmm or kmeans in its own run), the DEC outputs are compared with
+    themselves, and a line says so."""
+    try:
+        gmm_dir = _gmm_artifacts_dir(config, n_clusters)
+        labels_a = np.load(os.path.join(gmm_dir, "labels.npy"))
+        centroids_a = np.load(os.path.join(gmm_dir, "centroids.npy"))
+        run_dir = os.path.abspath(os.path.join(config.saved_weights,
+                                               os.pardir))
+        z_a = None
+        candidates = [resolve_z_aec_path(gmm_dir)] + [
+            os.path.join(d, "Z_AEC.npy")
+            for d in (run_dir, os.path.join(run_dir, "Prediction"),
+                      os.path.join(run_dir, os.pardir, "Prediction"))
+        ]
+        for cand in candidates:
+            if cand and os.path.exists(cand):
+                z_a = np.load(cand)
+                break
+        # GMM labels and centroids live in the AEC latent space: paired
+        # with anything but their own latents the distances mean nothing
+        if (z_a is None or len(z_a) != len(z_dec)
+                or len(labels_a) != len(z_a)
+                or len(centroids_a) != n_clusters):
+            raise FileNotFoundError
+        return z_a, labels_a, centroids_a
+    except (FileNotFoundError, OSError, ValueError):
+        print("[predict] GMM comparison artifacts missing or mismatched "
+              f"(looked near {getattr(config, 'saved_weights', '?')}); "
+              "comparative figures fall back to DEC-vs-DEC views")
+        return (np.asarray(z_dec), np.asarray(labels_dec),
+                np.asarray(centroids_dec))
+
+
+@torch.no_grad()
+def _decode(model, centroids: np.ndarray, precision) -> np.ndarray:
+    """The centroids through the trained model's own decoder, in the
+    precision policy's autocast: (K, H, W, 1) float32."""
+    device = next(model.parameters()).device
+    z = torch.from_numpy(np.asarray(centroids, np.float32)).to(device)
+    with precision.autocast(device):
+        return model.decoder(z).float().cpu().numpy()
+
+
+def _draw_dec_figures(config, model, precision, x: np.ndarray,
+                      z: np.ndarray, labels: np.ndarray,
+                      centroids: np.ndarray, metrics: Dict,
+                      sel: Optional[np.ndarray] = None) -> None:
+    """The DEC predict figures into `config.savepath_exp`, over the rows
+    `sel` of z and labels (all with None; x holds those rows only):
+    the silhouette plots over the scored rows, then `analyze_dec`'s."""
+    from spectrogram_cube_clustering_tpu_torch.workflow.fit import _tsne
+
+    k = int(config.n_clusters)
+    savepath = config.savepath_exp
+    rows = slice(None) if sel is None else sel
+    for key, name in (("silh_scores_Z", "silh_score_Z"),
+                      ("silh_scores_X", "silh_score_X")):
+        # with silh_max_samples, unscored rows are NaN
+        scores = np.asarray(metrics[key])
+        scored = np.isfinite(scores)
+        fig = plotting.view_silhscore(scores[scored], labels[rows][scored],
+                                      k, config.model)
+        fig.savefig(os.path.join(savepath, f"{name}.png"), dpi=300,
+                    facecolor="w")
+    z_a, labels_a, cents_a = _gmm_figure_context(config, k, z, labels,
+                                                 centroids)
+    figs = plotting.analyze_dec(
+        x, z_a[rows], z[rows], labels_a[rows], labels[rows], cents_a,
+        centroids, _tsne(config, z[rows]),
+        centroid_decodes=_decode(model, centroids, precision),
+        traces=_gallery_traces(config),
+    )
+    _save_predict_figures(figs, savepath)
+
+
 def _read_windows(ds, sel: np.ndarray, normalize) -> np.ndarray:
     """The normalized windows at the sorted dataset indices `sel`, with one
     read of each item they fall in. Items may differ in windows (each
@@ -154,7 +283,7 @@ def _read_windows(ds, sel: np.ndarray, normalize) -> np.ndarray:
     return np.concatenate(rows, axis=0)  # sel is sorted: aligned
 
 
-def _predict_stream(config) -> Dict:
+def _predict_stream(config, figures: bool = False) -> Dict:
     """`loadmode = stream` inference (see the module docstring)."""
     ds = _stream_dataset(config)
     m = ds.n_windows
@@ -234,6 +363,9 @@ def _predict_stream(config) -> Dict:
             savepath, labels_np[sel], np.moveaxis(x_sub, -1, 1), z_np[sel],
             device=resolve_device(getattr(config, "device", None)),
         )
+        if figures:  # on the metrics subsample
+            _draw_dec_figures(config, model, precision, x_sub, z_np,
+                              labels_np, centroids_np, metrics, sel)
         return {
             "q": q_np, "z": z_np, "labels": labels_np,
             "centroids": centroids_np, "metrics": metrics,

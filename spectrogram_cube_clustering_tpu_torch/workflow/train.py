@@ -21,13 +21,27 @@ PrefetchLoader`, `stream_transfer_dtype` the wire, same artifacts):
 
 Checkpoints are `.pt` files of the reference state_dict
 (`train/checkpoint.py`). Not ported, each raising `NotImplementedError`:
-figures (the AEC reconstruction panel, DEC's snapshot figures; ROADMAP
-Queue 1 item 9), TensorBoard (`tb = True`, item 15), the H5 stream source
+TensorBoard (`tb = True`, ROADMAP Queue 1 item 15), the H5 stream source
 (item 14) and a mesh (item 11).
+
+Figures (matplotlib, imported when drawn; `check_figure_packages` raises
+ImportError naming a missing package before anything is written):
+
+- AEC: the reconstruction panel `AEC_reconstructions.png` of the final
+  params on the first four training windows. The JAX package draws it
+  whatever `figures` says; the port draws it where `figures` is True or
+  unset (`run-dc`'s default) and leaves it out where `figures = False`,
+  so that AEC training runs on a machine without matplotlib. This is the
+  one deliberate difference in the artifact tree.
+- DEC (ram path, `figures = True`): every 4 epochs `analyze_dec`'s
+  figures of the snapshot against the pre-refinement one, with the
+  t-SNE of `workflow.fit._tsne`, saved on a background thread under
+  `<family>/<family>_<epoch>.png` (reference models.py:1166-1192).
 """
 
 from __future__ import annotations
 
+import copy
 import os
 import shutil
 from typing import Optional
@@ -116,22 +130,58 @@ def check_not_ported(config, mesh=None) -> None:
             "diagnostics are ROADMAP Queue 1 item 16")
 
 
-def _figures_not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: figures and t-SNE are ROADMAP Queue 1 "
-        "item 9; set figures = False")
+def check_figure_packages(config, tsne: bool = True) -> None:
+    """Raise ImportError naming matplotlib where it does not import, and,
+    where the figures need a t-SNE (`tsne`) through the sklearn backend
+    (`tsne_backend` other than jax), naming scikit-learn: the stages call
+    this before they write anything, and never skip a figure quietly."""
+    from spectrogram_cube_clustering_tpu_torch.analysis import plotting
+    from spectrogram_cube_clustering_tpu_torch.cluster.tsne import (
+        _sklearn_tsne,
+    )
+
+    plotting._plt()
+    if tsne and getattr(config, "tsne_backend", None) != "jax":
+        _sklearn_tsne()
 
 
-def _save_aec_artifacts(config, out) -> str:
-    """AEC run artifacts: history CSV and the final params."""
+def _aec_panel(config) -> bool:
+    """Whether AEC training draws its reconstruction panel: where
+    `figures` is True or unset (see the module docstring)."""
+    return bool(getattr(config, "figures", True))
+
+
+def _save_aec_artifacts(config, out, model, sample_x) -> str:
+    """AEC run artifacts: history CSV, the final params and, where
+    `_aec_panel`, the reconstruction panel of `sample_x` (n, H, W, 1)."""
     save_history(
         {"Epoch": out["history"]["epoch"],
          "Training MSE": out["history"]["train"],
          "Validation MSE": out["history"]["validation"]},
         os.path.join(config.savepath_run, "AEC_history.csv"),
     )
-    return save(os.path.join(config.savepath_run, "AEC_Params_Final.pt"),
-                out["final_params"])
+    final_path = save(
+        os.path.join(config.savepath_run, "AEC_Params_Final.pt"),
+        out["final_params"])
+    if _aec_panel(config):
+        from spectrogram_cube_clustering_tpu_torch.analysis import plotting
+
+        n_show = min(4, len(sample_x))
+        sample = torch.as_tensor(sample_x[:n_show])
+        final = copy.deepcopy(model)  # the trained model stays as it is
+        final.load_state_dict(out["final_params"])
+        device = next(final.parameters()).device
+        with torch.no_grad(), _precision(config).autocast(device):
+            xr = final(sample.to(device))[0].float().cpu().numpy()
+        fig = plotting.view_specgram_training(
+            sample.cpu().numpy(), xr, n_samples=n_show,
+            figtitle=f"AEC reconstructions (epoch {out['last_epoch']})",
+        )
+        fig.savefig(
+            os.path.join(config.savepath_run, "AEC_reconstructions.png"),
+            dpi=200, facecolor="w",
+        )
+    return final_path
 
 
 def load_aec_params(config, model):
@@ -225,9 +275,12 @@ def train(config, mesh=None):
             "(GMM fitting runs via mode='fit' / workflow.gmm_fit)"
         )
     check_not_ported(config, mesh)
-    if config.model == "DEC" and getattr(config, "figures", False):
-        raise _figures_not_ported("figures=True (DEC training snapshots)")
-    if getattr(config, "loadmode", None) == "stream":
+    if config.model == "AEC" and _aec_panel(config):
+        check_figure_packages(config, tsne=False)
+    stream = getattr(config, "loadmode", None) == "stream"
+    if config.model == "DEC" and not stream and _dec_snapshots(config):
+        check_figure_packages(config)
+    if stream:
         return _train_stream(config)
     tra_x, val_x = load_data(config)
     tra_x = _normalize(config, tra_x)
@@ -273,7 +326,7 @@ def _train_aec_run(config, hp, tra_x, val_x):
         resume=bool(getattr(config, "resume", False)),
         precision=_precision(config),
     )
-    _save_aec_artifacts(config, out)
+    _save_aec_artifacts(config, out, model, tra_x)
     out["savepath_run"] = config.savepath_run
     return out
 
@@ -333,6 +386,32 @@ def _dec_config(config, hp, n_clusters: int):
     )
 
 
+def _dec_snapshots(config) -> bool:
+    """Whether DEC training draws its snapshot figures: where `figures` is
+    True (unset means no, as in the JAX package)."""
+    return bool(getattr(config, "figures", False))
+
+
+def _snapshot_figures(config, tra_x: torch.Tensor):
+    """train_dec's `snapshot_cb`: `analyze_dec`'s figures of the snapshot
+    (its labels, latents and centroids) against the pre-refinement one
+    (`initial`; on a resumed run the snapshot against itself), saved off
+    the training thread."""
+    from spectrogram_cube_clustering_tpu_torch.analysis import plotting
+    from spectrogram_cube_clustering_tpu_torch.workflow.fit import _tsne
+
+    def snapshot_cb(epoch, labels, z, centroids, initial=None):
+        z0, labels0, cen0 = (initial if initial is not None
+                             else (z, labels, centroids))
+        figs = plotting.analyze_dec(
+            tra_x.cpu().numpy(), z0, z, labels0, labels, cen0, centroids,
+            _tsne(config, z), epoch=epoch,
+        )
+        plotting.plotter_async(figs, config.savepath_run, epoch=epoch)
+
+    return snapshot_cb
+
+
 def _train_dec_run(config, hp, tra_x):
     batch_size, lr = int(hp["batch_size"]), float(hp["lr"])
     n_clusters = int(hp.get("n_clusters", getattr(config, "n_clusters", 5)))
@@ -345,6 +424,8 @@ def _train_dec_run(config, hp, tra_x):
     out = _train.train_dec(
         model, state, data, _dec_config(config, hp, n_clusters),
         initial=_dec_initial(config, n_clusters),
+        snapshot_cb=(_snapshot_figures(config, tra_x)
+                     if _dec_snapshots(config) else None),
         snapshot_path=os.path.join(config.savepath_chkpnt, "SNAPSHOT"),
         resume=bool(getattr(config, "resume", False)),
         precision=_precision(config),
@@ -462,7 +543,8 @@ def _train_stream(config):
                 snapshot_path=snapshot, resume=resume,
                 precision=_precision(config),
             )
-            _save_aec_artifacts(config, out)
+            _save_aec_artifacts(config, out, model,
+                                _np_normalizer(config)(ds.item(0))[:4])
         else:
             n_clusters = int(hp.get("n_clusters",
                                     getattr(config, "n_clusters", 5)))

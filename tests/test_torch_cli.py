@@ -28,7 +28,10 @@ from spectrogram_cube_clustering_tpu.data import make_synthetic_cube
 from spectrogram_cube_clustering_tpu.utils import torch_port
 from spectrogram_cube_clustering_tpu_torch import cli, models
 from spectrogram_cube_clustering_tpu_torch.utils import config_training
-from torch_train_common import one_torch_thread  # noqa: F401 (fixture)
+from torch_train_common import (  # noqa: F401 (fixtures)
+    one_openmp_thread,
+    one_torch_thread,
+)
 
 SPEC = dict(chunk_size=32, window_rows=4, channel_start=1, channel_stride=2)
 N_CLASSES = 3
@@ -226,7 +229,9 @@ def _latest(root, model):
 def test_driver_chain(tmp_path, cube):
     """The five drivers run the workflow through their argparse surface
     on the CPU, the cube geometry flags included, and land the JAX
-    package's artifact tree (`.pt` files for its orbax directories)."""
+    package's artifact tree (`.pt` files for its orbax directories),
+    figures included: like the JAX drivers they leave `figures` at its
+    default."""
     geom = ["--chunk-size", "32", "--channel-start", "1",
             "--channel-stride", "2", "--project", str(tmp_path),
             "--device", "cpu"]
@@ -238,6 +243,7 @@ def test_driver_chain(tmp_path, cube):
     assert sorted(os.listdir(os.path.join(run, "tmp"))) == [
         "AEC_Params_001.pt", "AEC_Params_002.pt", "SNAPSHOT"]
     assert os.path.exists(os.path.join(run, "AEC_history.csv"))
+    assert os.path.exists(os.path.join(run, "AEC_reconstructions.png"))
 
     cli.aec_predict([path, *geom, weights])
     assert np.load(os.path.join(run, "Prediction", "Z_AEC.npy")).shape == (
@@ -246,7 +252,8 @@ def test_driver_chain(tmp_path, cube):
                        "--km-n-init", "4", "--km-max-iter", "50"])
     gmm_dir = os.path.join(run, "GMM", "n_clusters=3")
     assert sorted(f for f in os.listdir(gmm_dir)) == [
-        "Labels.csv", "Z_AEC.path", "centroids.npy", "labels.npy"]
+        "Labels.csv", "Z_AEC.path", "centroids.npy", "labels.npy",
+        "t-SNE.png"]
     cli.dec_train([path, *geom, weights, "--epochs", "1", "--batch-size",
                    "32", "--lr", "0.0005", "--n-clusters", "3", "--tol",
                    "0.0", "--init", "load"])
@@ -259,9 +266,15 @@ def test_driver_chain(tmp_path, cube):
     q = np.load(os.path.join(dec_run, "Prediction", "q_DEC.npy"))
     assert q.shape == (len(cube[1]), 3)
     assert np.abs(q.sum(1) - 1.0).max() <= 1e-4
+    pred = os.path.join(dec_run, "Prediction")
+    for name in ("silh_score_Z.png", "silh_score_X.png", "T-SNE/t-SNE.png",
+                 "Gallery/gallery.png", "LatentSpace/latent.png",
+                 "CDF/cdf.png", "PDF/pdf.png"):
+        assert os.path.exists(os.path.join(pred, name)), name
     with open(os.path.join(tmp_path, "Config", "init_predict.ini")) as f:
         text = f.read()
-    assert "figures = False" in text and "device = cpu" in text
+    # as the JAX driver's ini: no figures key, so figures are on
+    assert "figures" not in text and "device = cpu" in text
 
 
 def test_driver_resume_reuses_run_tree(tmp_path, cube):
@@ -299,7 +312,6 @@ def test_run_dc_argv_and_checks(tmp_path, cube, capsys):
 
 
 @pytest.mark.parametrize("params,item", [
-    ({"figures": "True"}, "item 9"),
     ({"tb": "True"}, "item 15"),
     ({"km_metrics": "True"}, "item 16"),
     ({"loadmode": "stream", "datafiletype": "h5"}, "item 14"),
@@ -316,17 +328,15 @@ def test_not_ported_raise(tmp_path, cube, params, item):
 
 
 def test_library_not_ported_raise(tmp_path):
-    """The library stages raise for figures and a mesh."""
+    """The library stages raise for a mesh (with figures on or off; the
+    figures themselves run: tests/test_torch_figures.py)."""
     from spectrogram_cube_clustering_tpu_torch import workflow
     from spectrogram_cube_clustering_tpu_torch.utils import load_config
 
-    ini = _ini(str(tmp_path), "unused", {"model": "DEC", "mode": "train",
-                                         "figures": "True"})
-    cfg = load_config(ini)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        workflow.train(cfg)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        workflow.train(cfg, mesh=object())
-    for stage in (workflow.predict, workflow.gmm_fit):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            stage(cfg)
+    for figures in ("True", "False"):
+        ini = _ini(str(tmp_path), "unused", {"model": "DEC", "mode": "train",
+                                             "figures": figures})
+        cfg = load_config(ini)
+        for stage in (workflow.train, workflow.predict, workflow.gmm_fit):
+            with pytest.raises(NotImplementedError, match="item 11"):
+                stage(cfg, mesh=object())

@@ -838,3 +838,28 @@ def test_predictor_over_a_wire_on_card_matches_cpu(cuda_device, wire):
     a = serve.WaveformFrontend(got, chunk_samples=8_000)(wave)
     b = serve.WaveformFrontend(want, chunk_samples=8_000)(wave)
     np.testing.assert_allclose(a["q"], b["q"], rtol=1e-4, atol=1e-5)
+
+
+def test_tsne_optimiser_on_card_matches_cpu(cuda_device):
+    """The on-device t-SNE's gradient loop from one P and y0, across the
+    switch at iteration 250, in blocks of 128 rows: y on the card within
+    rtol 1e-3 / atol 1e-6 of the CPU's and the KL within rtol 1e-3 (the
+    JAX package's chunked-against-dense tolerances)."""
+    import importlib
+
+    tsne = importlib.import_module(
+        "spectrogram_cube_clustering_tpu_torch.cluster.tsne_torch")
+    x = np.random.default_rng(0).normal(size=(500, 9)).astype(np.float32)
+    perplexity, lr = tsne.default_hyperparameters(len(x))
+    p = tsne._joint_p(torch.from_numpy(x), perplexity, chunk=128)
+    out = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        y0 = tsne.initial_embedding(len(x), 1, dev)
+        (y, _, _), kl = tsne._optimize(
+            p.to(dev), (y0, torch.zeros_like(y0), torch.ones_like(y0)), 245,
+            lr, 20.0, 10, chunk=128, with_kl=True)
+        out[dev.type] = (y.cpu(), kl.cpu())
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-3,
+                               atol=1e-6)
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=1e-3,
+                               atol=0)

@@ -42,6 +42,18 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_openmp_thread():
+    """One OpenMP and BLAS thread while a module runs: sklearn's t-SNE
+    and k-means otherwise start a thread per core in every parallel
+    worker, and the oversubscribed cores made a driver chain with two
+    sklearn t-SNEs take 299 s instead of 8."""
+    from threadpoolctl import threadpool_limits
+
+    with threadpool_limits(limits=1):
+        yield
+
+
 def _f32():
     return jax.default_matmul_precision("float32")
 
