@@ -121,6 +121,29 @@ the script exits non-zero:
    write every figure file of the JAX tree; where it does not (the
    card's machine), run-dc with figures must raise ImportError naming
    matplotlib and leave the run dir as it was;
+4j. multi-GPU (`core.mesh`, `parallel`; no kernel of its own: K1 runs in
+   every rank): 4c's five waveform stages (41,936 windows, K1 at the
+   head of every stage) through `cli.run_dc(mesh=)` in child processes,
+   (a) as a one-rank NCCL group and (b) as two ranks on the one card over
+   gloo with CUDA tensors (NCCL refuses two ranks on one device; gloo
+   on CUDA has only all-reduce and broadcast, which is all the mesh
+   uses). Each is held to the same stages run on the card without a
+   mesh in a child of its own, every run with deterministic cuDNN
+   algorithms (the card's default ones move the AEC losses ~1.5e-4 run
+   to run: the reference's gap to 4c's run is printed): the AEC losses
+   within rtol 1e-4 (a) and 1e-3 (b: see MESH_RUNS), the DEC labels at
+   NMI >= 0.99 and the artifact tree equal name for name (serials
+   aside), and K1 must launch in every rank's stages. (b) also holds one
+   AEC epoch of 100 windows whose padded last batch is uneven over the
+   ranks to the same epoch on one device: loss and gradients within
+   1e-5. (b) also runs `parallel.sharded_spectrogram`
+   over 4c's (16, 2^20) waveform cut to a multiple of 2 x hop
+   (16, 1,048,400), its time axis split across the ranks, held to K1 on
+   the whole within 1e-6 (log10; the same per-frame arithmetic), and
+   `parallel.sharded_gmm` on 4c's DEC latents against the dense `gmm`
+   at NMI >= 0.99. Prints each stage's wall, each rank's peak device
+   memory and K1 launches per rank. The kernels are built before any
+   rank starts, and a rank that fails fails the phase;
 4d. variants: the STFT precision and interior kernels
    (`csrc/stft_variants.cu`) through their entry points: K1's
    `precision="default"` (TF32), the folded STFT at HIGHEST, DEFAULT and
@@ -722,22 +745,25 @@ def _files(path: str) -> set:
 
 
 def run_five_stages(root: str, universal: dict, card: str, name: str,
-                    extra=None, dec: bool = True):
+                    extra=None, dec: bool = True, mesh=None):
     """AEC train, AEC predict, GMM fit, DEC train (init=load) and DEC
     predict (with `dec=False` the two AEC stages only), each through the
     port's `cli.run_dc` with the card as the default device and the
-    `extra` ini keys; checks every stage's artifact names. Returns each
-    stage's directory, the stage walls, the `load_data` read seconds and
-    each stage's peak device memory above what was allocated when it
+    `extra` ini keys (under a `mesh`, over it, each rank writing its inis
+    to its own directory); checks every stage's artifact names. Returns
+    each stage's directory, the stage walls, the `load_data` read seconds
+    and each stage's peak device memory above what was allocated when it
     started."""
     from spectrogram_cube_clustering_tpu_torch import cli
     from spectrogram_cube_clustering_tpu_torch.utils import config_training
 
     walls, reads, peaks = {}, {}, {}
 
+    config = "Config" if mesh is None else f"Config_rank{mesh.rank}"
+
     def run(stage, params, hp=None):
         ini = config_training(
-            {"savepath": f"{root}/Outputs", "configpath": f"{root}/Config",
+            {"savepath": f"{root}/Outputs", "configpath": f"{root}/{config}",
              "transform": "sample_norm_cent", **universal},
             {"tb": "False", "show": "False", "figures": "False", **params,
              **(extra or {})},
@@ -746,7 +772,7 @@ def run_five_stages(root: str, universal: dict, card: str, name: str,
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()  # earlier phases' tensors
         t0 = time.perf_counter()
-        cfg = cli.run_dc(init_path=ini)
+        cfg = cli.run_dc(init_path=ini, mesh=mesh)
         torch.cuda.synchronize()
         walls[stage] = time.perf_counter() - t0
         peaks[stage] = torch.cuda.max_memory_allocated() - base
@@ -2201,6 +2227,314 @@ def phase_tsne(device, card, tmp: str, sources: dict, seed: int,
         check(unchanged, "run-dc figures wrote into the run dir")
 
 
+#: 4j: each mesh run's time limit for its rank processes (s)
+MESH_TIMEOUT = 600
+#: 4j: (name, ranks, backend on a card, the AEC losses' rtol against the
+#: single-device run); the reference runs on one device without a group.
+#: One rank sums nothing, so its losses are the reference's (0.0
+#: measured). Two ranks add two partial gradient sums, and Adam
+#: amplifies that reordering over the 1,377 steps to 1.6e-4, as far as
+#: the card's own run-to-run spread (1.5e-4 to 2.1e-4, 4c's default cuDNN
+#: algorithms against the deterministic ones; PERF.md §6): a 1e-4 gate
+#: failed there, so (b) takes 4b's trajectory rule, 1e-3, and the
+#: arithmetic is gated on one epoch's gradients instead (MESH_GRAD_RTOL)
+MESH_RUNS = (("single", 1, None, 0.0), ("a", 1, "nccl", 1e-4),
+             ("b", 2, "gloo", 1e-3))
+#: 4j(b): an epoch of 100 windows in batches of 64 (the padded last batch
+#: holds 32 real rows in rank 0's block and 4 in rank 1's) from seeded
+#: weights: its loss and each step's gradient summed over the ranks
+#: against one device's, relative to the gradient's norm (float32 sums
+#: in another order)
+MESH_GRAD_RTOL = 1e-5
+
+
+class _GradRecorder:
+    """An optimizer stand-in for `train.TrainState`: keeps each step's
+    gradients (summed over the ranks by the state) and leaves the params
+    as they are."""
+
+    def __init__(self, params):
+        self.params = list(params)
+        self.grads = []
+
+    def step(self):
+        self.grads.append(torch.cat([p.grad.reshape(-1)
+                                     for p in self.params]))
+
+    def zero_grad(self, set_to_none=True):
+        for p in self.params:
+            p.grad = None
+
+
+def uneven_epoch(mesh, windows: torch.Tensor) -> tuple:
+    """(loss, gradients) of one AEC epoch over `windows` in batches of 64
+    from seeded weights, the state summing the gradients over `mesh` (one
+    device with None)."""
+    from spectrogram_cube_clustering_tpu_torch import models, train
+    from spectrogram_cube_clustering_tpu_torch.train.aec import train_epoch
+
+    model = models.AEC(generator=torch.Generator().manual_seed(0),
+                       device=windows.device)
+    rec = _GradRecorder(model.parameters())
+    loss = train_epoch(train.TrainState(model=model, optimizer=rec,
+                                        mesh=mesh),
+                       train.make_batched_data(windows, 64, mesh))
+    return loss, torch.stack(rec.grads)
+
+
+def _outputs_tree(root: str) -> set:
+    """Every path under root/Outputs, serials blanked and figures left
+    out (4i(e) may add figures to 4c's run where matplotlib imports)."""
+    import re
+
+    out = set()
+    for d, dirs, files in os.walk(os.path.join(root, "Outputs")):
+        for f in dirs + files:
+            if not f.endswith(".png"):
+                rel = os.path.relpath(os.path.join(d, f), root)
+                out.add(re.sub(r"\d{8}T\d{12}", "SERIAL", rel))
+    return out
+
+
+def mesh_child(rank: int, world: int, port: int, backend: Optional[str],
+               root: str, args_path: str, out_path: str) -> int:
+    """One rank of phase 4j, in its own process: join the group on the
+    args' device (with `backend` None, run on the device alone), run 4c's
+    five waveform stages over the mesh with deterministic cuDNN
+    algorithms, and with two ranks the sharded STFT and GMM; write the
+    results to out_path."""
+    import torch.distributed as dist
+
+    from spectrogram_cube_clustering_tpu_torch import core, parallel
+    from spectrogram_cube_clustering_tpu_torch.cluster import nmi
+    from spectrogram_cube_clustering_tpu_torch.ops import cuda_stft
+
+    with open(args_path) as f:
+        args = json.load(f)
+    # the card's default algorithms differ run to run (4c's run lies
+    # ~1e-4 from a deterministic one): every run of 4j takes the
+    # deterministic ones, so a gap is the mesh's
+    torch.backends.cudnn.deterministic = True
+    if backend is None:
+        device, mesh = core.resolve_device(args["device"]), None
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+    else:
+        device = core.initialize_distributed(
+            f"127.0.0.1:{port}", world, rank, device=args["device"],
+            backend=backend)
+        mesh = core.make_data_mesh()
+    core.fp32_policy()
+    card = card_line()
+    cuda_stft.LAUNCHES = 0  # the stages' run starts here
+    _, walls, _, peaks = run_five_stages(
+        root, args["universal"], card, f"mesh {world} x {backend} rank "
+        f"{rank}", mesh=mesh)
+    out = {"rank": rank, "walls": walls, "peaks": peaks,
+           "stage_launches": cuda_stft.LAUNCHES}  # ... and ends here
+    if world > 1:
+        # 4c's waveform cut to a multiple of world x hop, the JAX
+        # package's alignment: (16, 2^20) -> (16, 1,048,400)
+        wave = np.load(args["wave"], mmap_mode="r")
+        t = wave.shape[1] - wave.shape[1] % (world * 100)
+        wave = torch.from_numpy(np.ascontiguousarray(wave[:, :t]))
+        wave = wave.to(device)
+        lo, hi = mesh.block(t)
+        shard = wave[:, lo:hi].contiguous()
+        before = cuda_stft.LAUNCHES
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = parallel.sharded_spectrogram(shard, mesh)
+        torch.cuda.synchronize()
+        out["spec_s"] = time.perf_counter() - t0
+        out["spec_launches"] = cuda_stft.LAUNCHES - before
+        want = cuda_stft.spectrogram(wave)  # K1 on the whole waveform
+        out["spec_shape"] = list(got.shape)
+        out["spec_err"] = float((got - want).abs().max())
+        t0 = time.perf_counter()
+        labels = parallel.sharded_gmm(np.load(args["z"]), 5, mesh,
+                                      n_init=100, kmeans_n_iter=1000)[0]
+        out["gmm_s"] = time.perf_counter() - t0
+        out["gmm_nmi"] = nmi(np.load(args["dense"]), labels.cpu().numpy())
+        # the sum itself: an epoch with an uneven padded batch, summed
+        # over the ranks against one device (100 windows of channel 0)
+        from spectrogram_cube_clustering_tpu_torch.signal.stft import (
+            spectrogram_windows,
+        )
+
+        windows = spectrogram_windows(wave[0, :40_100])
+        (l1, g1), (lm, gm) = (uneven_epoch(m, windows) for m in (None, mesh))
+        out["uneven"] = (len(windows), abs(lm - l1) / l1,
+                         float((gm - g1).norm() / g1.norm()))
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    if mesh is not None:
+        dist.destroy_process_group()
+    return 0
+
+
+def run_mesh_ranks(world: int, backend: Optional[str], root: str,
+                   args_path: str, tmp: str) -> list:
+    """Start `world` processes of `mesh_child` on a free local port, wait
+    for them (the first failure, or MESH_TIMEOUT, kills the rest), and
+    return each rank's results; a failed rank's log tail goes to stderr
+    and fails the phase. No process outlives this call."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo", NCCL_SOCKET_IFNAME="lo")
+    procs, logs, outs = [], [], []
+    try:
+        for rank in range(world):
+            outs.append(f"{root}.rank{rank}.json")
+            logs.append(f"{root}.rank{rank}.log")
+            code = (f"import sys; sys.path.insert(0, {here!r}); "
+                    f"import chip_smoke; sys.exit(chip_smoke.mesh_child("
+                    f"{rank}, {world}, {port}, {backend!r}, {root!r}, "
+                    f"{args_path!r}, {outs[-1]!r}))")
+            with open(logs[-1], "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", code], stdout=log,
+                    stderr=subprocess.STDOUT, cwd=here, env=env))
+        deadline = time.monotonic() + MESH_TIMEOUT
+        while (any(p.poll() is None for p in procs)
+               and not any(p.returncode for p in procs)
+               and time.monotonic() < deadline):
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            with open(log) as f:
+                tail = f.read()[-6000:]
+            print(f"mesh {world} x {backend} rank {rank} ended with "
+                  f"{p.returncode}:\n{tail}", file=sys.stderr, flush=True)
+    check(all(p.returncode == 0 for p in procs),
+          f"mesh {world} x {backend}: ranks {[p.returncode for p in procs]}")
+    results = []
+    for path in outs:
+        with open(path) as f:
+            results.append(json.load(f))
+    return results
+
+
+def phase_multigpu(device, card, tmp: str, sources: dict) -> int:
+    """4j: 4c's waveform stages on one device, over a one-rank NCCL group
+    and over two ranks on one card over gloo, each in child processes
+    with deterministic cuDNN algorithms; the mesh runs held to the
+    single-device one, and the sharded STFT and GMM on two ranks. Returns
+    K1's launches in the ranks' main paths (the stages and the sharded
+    STFT)."""
+    from spectrogram_cube_clustering_tpu_torch import cluster
+
+    [dec_run] = _dirs_holding(f"{tmp}/B", "DEC_Params_Final.pt")
+    [aec_run] = _dirs_holding(f"{tmp}/B", "AEC_history.csv")
+    default_aec = aec_history(aec_run)  # 4c's, default cuDNN algorithms
+    z_path = os.path.join(dec_run, "Prediction", "Z_DEC.npy")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dense = cluster.gmm(np.load(z_path), 5, n_init=100, kmeans_max_iter=1000,
+                        device=device)[0]
+    dense_s = time.perf_counter() - t0
+    np.save(f"{tmp}/mesh_dense.npy", dense.cpu().numpy())
+    args_path = f"{tmp}/mesh_args.json"
+    with open(args_path, "w") as f:
+        json.dump({"universal": sources["waveform"][0],
+                   "wave": sources["waveform"][0]["fname_dataset"],
+                   "z": z_path, "dense": f"{tmp}/mesh_dense.npy",
+                   "device": str(device)}, f)
+    def gap(a, b):
+        return (float(np.max(np.abs(np.asarray(a) - b) / np.abs(b)))
+                if len(a) == len(b) else float("inf"))
+
+    launches = 0
+    single = None
+    for name, world, backend, rtol in MESH_RUNS:
+        if device.type != "cuda" and backend is not None:
+            backend = "gloo"  # a rehearsal on the CPU
+        root = f"{tmp}/mesh_{name}"
+        t0 = time.perf_counter()
+        ranks = run_mesh_ranks(world, backend, root, args_path, tmp)
+        wall = time.perf_counter() - t0
+        [run] = _dirs_holding(root, "AEC_history.csv")
+        hist = aec_history(run)
+        [pred] = _dirs_holding(root, "labels_DEC.npy")
+        labels = np.load(os.path.join(pred, "labels_DEC.npy"))
+        tree = _outputs_tree(root)
+        if single is None:
+            single = {"aec": hist, "labels": labels, "tree": tree}
+            print(f"multi-GPU 4j({name}) on {card}: the five waveform "
+                  f"stages on one device in {wall:.3f} s (process "
+                  f"included), the reference of 4j; AEC losses {hist}, "
+                  f"4c's run with the default cuDNN algorithms "
+                  f"{default_aec} (largest relative gap "
+                  f"{gap(hist, default_aec):.3e}, the card's own spread); "
+                  f"artifact tree equal to 4c's "
+                  f"{tree == _outputs_tree(f'{tmp}/B')}", flush=True)
+        gap_aec = gap(hist, single["aec"])
+        score = cluster.nmi(single["labels"], labels)
+        if name != "single":
+            print(f"multi-GPU 4j({name}) on {card}: {world} rank(s) over "
+                  f"{backend}, the five waveform stages in {wall:.3f} s "
+                  f"(processes included); AEC losses {hist} against the "
+                  f"single-device run's {single['aec']} (largest relative "
+                  f"gap {gap_aec:.3e}); DEC labels NMI vs the "
+                  f"single-device run {score:.4f}; artifact tree equal to "
+                  f"the single-device run's {tree == single['tree']} "
+                  f"({len(tree)} paths)", flush=True)
+        for r in ranks:
+            walls = {k: round(v, 3) for k, v in r["walls"].items()}
+            print(f"multi-GPU 4j({name}) rank {r['rank']} on {card}: stage "
+                  f"walls {walls} s; peak device memory above each stage's "
+                  f"start {r['peaks']} bytes, the process's peak "
+                  f"{r['peak_bytes']} bytes; K1 launches in the stages "
+                  f"{r['stage_launches']}", flush=True)
+            check(r["stage_launches"] >= 4,
+                  f"4j({name}) rank {r['rank']} K1 launches")
+            if name != "single":
+                launches += r["stage_launches"]
+        check(gap_aec <= rtol,
+              f"4j({name}) AEC losses {hist} vs {single['aec']}")
+        check(score >= 0.99, f"4j({name}) DEC labels NMI {score}")
+        check(tree == single["tree"],
+              f"4j({name}) tree differs: {sorted(tree ^ single['tree'])}")
+        if world > 1:
+            for r in ranks:
+                print(f"multi-GPU 4j({name}) rank {r['rank']} on {card}: "
+                      f"sharded_spectrogram {tuple(r['spec_shape'])} over "
+                      f"{world} ranks {r['spec_s']:.4f} s (K1 launches "
+                      f"{r['spec_launches']}), max_abs_err vs K1 on the "
+                      f"whole waveform {r['spec_err']:.3e}; sharded_gmm of "
+                      f"4c's DEC latents {r['gmm_s']:.3f} s, NMI vs the "
+                      f"dense gmm ({dense_s:.3f} s) {r['gmm_nmi']:.4f}",
+                      flush=True)
+                check(r["spec_launches"] >= 1,
+                      f"4j rank {r['rank']} sharded STFT launches")
+                check(r["spec_err"] <= K1_GAP,
+                      f"4j rank {r['rank']} sharded STFT {r['spec_err']}")
+                check(r["gmm_nmi"] >= 0.99,
+                      f"4j rank {r['rank']} sharded GMM NMI {r['gmm_nmi']}")
+                launches += r["spec_launches"]
+                n, loss_gap, grad_gap = r["uneven"]
+                print(f"multi-GPU 4j({name}) rank {r['rank']} on {card}: an "
+                      f"AEC epoch of {n} windows in batches of 64 (the "
+                      f"padded last batch 32 + 4 real rows over the ranks) "
+                      f"summed over {world} ranks against one device: loss "
+                      f"relative gap {loss_gap:.3e}, gradients {grad_gap:.3e} "
+                      f"of their norm", flush=True)
+                check(n == 100 and loss_gap <= MESH_GRAD_RTOL
+                      and grad_gap <= MESH_GRAD_RTOL,
+                      f"4j rank {r['rank']} uneven epoch {r['uneven']}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2367,10 +2701,13 @@ def main() -> int:
         # 4i. the on-device t-SNE, and the figures, on 4c's DEC run
         phase_tsne(device, card, tmp, sources, args.seed, wave_launches,
                    args.save_tsne_inputs)
+        # 4j. the mesh: 4c's waveform stages over one NCCL rank and over
+        # two gloo ranks on the card; the sharded STFT and GMM
+        mesh_launches = phase_multigpu(device, card, tmp, sources)
     max_err = max(max_err, cube_err)
     print(f"STFT kernel launches: serving path {launches}, training path "
           f"{train_launches}, workflow {wf_launches}, architectures "
-          f"{arch_launches}", flush=True)
+          f"{arch_launches}, multi-GPU ranks {mesh_launches}", flush=True)
     check(train_launches >= 1, "STFT kernel on the training path")
     # 4d. the STFT precision and interior variants
     variant_entries = phase_variants(device, gen, card, cuda_stft,
@@ -2433,7 +2770,8 @@ def main() -> int:
         "route": "cuda",
         "source": "spectrogram_cube_clustering_tpu_torch/csrc/stft.cu",
         "replaces": "spectrogram_cube_clustering_tpu/ops/pallas_stft.py:86",
-        "launches": launches + train_launches + wf_launches + arch_launches,
+        "launches": (launches + train_launches + wf_launches + arch_launches
+                     + mesh_launches),
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,

@@ -9,7 +9,8 @@ package imports no jax and builds no kernel: `ops.cuda_stft` compiles
 
 Subpackages
 -----------
-core      : explicit devices, the float32 (no TF32) policy
+core      : explicit devices, the float32 (no TF32) policy, the data mesh
+            (a torch.distributed group, one rank per GPU)
 ops       : normalizers, Student-t assignment, losses, the CUDA STFT kernel
 signal    : waveform -> spectrogram windows
 models    : Encoder / Decoder / AEC / DEC (torch.nn)
@@ -17,6 +18,8 @@ train     : batches on the device, Adam state, AEC pretraining, DEC
             refinement, checkpoints and resumable snapshots
 cluster   : batched k-means restarts, full-covariance GMM-EM, silhouettes
             and per-class metrics
+parallel  : the halo exchange and time-sharded STFT, k-means / GMM-EM
+            with their statistics summed over a mesh
 data      : the Zarr reader/writer, the cube window dataset, the split
 workflow  : the train / fit / predict stages from a config, Zarr-cube or
             raw-waveform source
@@ -35,6 +38,7 @@ from spectrogram_cube_clustering_tpu_torch import (  # noqa: F401
     data,
     models,
     ops,
+    parallel,
     serve,
     serve_http,
     signal,
@@ -44,6 +48,7 @@ from spectrogram_cube_clustering_tpu_torch import (  # noqa: F401
 )
 
 __all__ = [
-    "cluster", "core", "data", "models", "ops", "serve", "serve_http",
+    "cluster", "core", "data", "models", "ops", "parallel", "serve",
+    "serve_http",
     "signal", "train", "utils", "workflow", "__version__",
 ]

@@ -15,6 +15,12 @@ run raises ImportError naming it before it writes anything; the card's
 machine has neither, so there the ini says `figures = False`, or
 `tsne_backend = jax` where matplotlib is installed. `tb = True` raises
 NotImplementedError (TensorBoard, ROADMAP Queue 1 item 15).
+
+`--mesh` (or `mesh=` a `core.mesh.DataMesh`) runs the stage data-parallel
+over a `torch.distributed` group, one process per GPU, each on its
+`cuda:LOCAL_RANK`; rank 0 writes the artifacts:
+
+    torchrun --nproc_per_node=4 -m spectrogram_cube_clustering_tpu_torch.cli.run_dc init.ini --mesh
 """
 
 from __future__ import annotations
@@ -43,7 +49,7 @@ def notify(subject: str, content: str, path: Optional[str] = None) -> None:
 
 def main(init_path: Optional[str] = None,
          device: Union[int, str, None] = None,
-         argv: Optional[list] = None) -> Configuration:
+         argv: Optional[list] = None, mesh=None) -> Configuration:
     if init_path is None:
         parser = argparse.ArgumentParser(
             description="Pretrain (AEC), fit (GMM), or train (DEC) the "
@@ -56,18 +62,34 @@ def main(init_path: Optional[str] = None,
             help="'cpu', or a CUDA device index (default: the ini's "
             "`device`, else the card)",
         )
+        parser.add_argument(
+            "--mesh", action="store_true",
+            help="join the torch.distributed group torchrun started (RANK, "
+            "WORLD_SIZE, MASTER_ADDR, MASTER_PORT) and run the stage "
+            "data-parallel over it, one GPU a rank",
+        )
         args = parser.parse_args(argv)
         init_path = args.init_path
         device = args.device
+        if args.mesh:
+            from spectrogram_cube_clustering_tpu_torch.core.mesh import (
+                initialize_distributed,
+                make_data_mesh,
+            )
+
+            initialize_distributed(device="cpu" if device == "cpu" else None)
+            mesh = make_data_mesh()
 
     config = Configuration(init_path).load_config()
-    config.set_device(device)
+    config.set_device(mesh.device if mesh is not None else device)
     check_not_ported(config)
     figures = bool(getattr(config, "figures", True))
     if figures:
         check_figure_packages(config)
+    primary = mesh is None or mesh.rank == 0
     config.init_exp_env()
-    config.save_exp_config()
+    if primary:
+        config.save_exp_config()
 
     tic = datetime.now()
     if config.model != "GMM" and not os.path.exists(config.fname_dataset):
@@ -82,11 +104,11 @@ def main(init_path: Optional[str] = None,
     print(f"Executing {config.verb} mode for {config.model} on "
           f"{config.device}")
     if config.mode == "train":
-        workflow.train(config)
+        workflow.train(config, mesh=mesh)
     elif config.mode == "predict":
-        workflow.predict(config, figures=figures)
+        workflow.predict(config, mesh=mesh, figures=figures)
     elif config.mode == "fit":
-        workflow.gmm_fit(config, figures=figures)
+        workflow.gmm_fit(config, figures=figures, mesh=mesh)
     else:
         raise ValueError(f"unknown mode {config.mode!r}")
     toc = datetime.now()
@@ -95,7 +117,7 @@ def main(init_path: Optional[str] = None,
         f"Time Elapsed = {toc - tic}."
     )
     print(content)
-    if getattr(config, "send_message", False):
+    if getattr(config, "send_message", False) and primary:
         notify(
             f"{config.model} {config.verb} completed.", content,
             path=os.path.join(config.savepath_exp, "COMPLETED.txt"),

@@ -1,6 +1,5 @@
 """Host-side prefetching for `loadmode = stream`: item reads overlapped with
-device compute (counterpart of the JAX package's `data/prefetch.py`, one
-process).
+device compute (counterpart of the JAX package's `data/prefetch.py`).
 
     reader threads -> bounded queue (host items, in index order)
       -> batch assembly into pinned host buffers -> wire encoding
@@ -9,8 +8,14 @@ process).
 
 The consumer gets batch i while batch i + 1 is already crossing. Used when
 the windows exceed the device (or host) memory; small datasets take the
-device-resident layout (`train.layout`) instead. A `sharding` that spans
-processes (multi-process streaming) is ROADMAP Queue 1 item 11.
+device-resident layout (`train.layout`) instead.
+
+On a mesh (`sharding=`, a `core.mesh.DataMesh`) every rank runs the same
+loader over the same items in the same order, and each rank assembles and
+sends only its block of every global batch (rows [rank B / world,
+(rank + 1) B / world)). With `item_windows` (windows per item) it also
+reads only the items its blocks need. The wire encodings are per sample,
+so a rank's int8 scales are its own samples'.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import numpy as np
 import torch
 
 from spectrogram_cube_clustering_tpu_torch.core.device import resolve_device
+from spectrogram_cube_clustering_tpu_torch.core.mesh import DataMesh
 from spectrogram_cube_clustering_tpu_torch.core.precision import (
     quantize_wire,
     wire_dtype,
@@ -36,6 +42,26 @@ class _ReaderError:
 
     def __init__(self, error: BaseException):
         self.error = error
+
+
+class _Skip:
+    """Queue entry for an item none of whose windows this rank keeps: its
+    window count, in place of a read."""
+
+    def __init__(self, rows: int):
+        self.rows = rows
+
+
+def _overlaps(s: int, e: int, lo: int, hi: int, bsz: int) -> bool:
+    """Whether global rows [s, e) hold a row whose place in its batch of
+    `bsz` lies in [lo, hi)."""
+    if e <= s:
+        return False
+    if e - s >= bsz:
+        return True
+    r0 = s % bsz
+    r1 = r0 + (e - s)  # [r0, r1), wrapping past bsz into the next batch
+    return (r0 < hi and lo < r1) or (r1 > bsz and lo < r1 - bsz)
 
 
 class PrefetchLoader:
@@ -52,7 +78,14 @@ class PrefetchLoader:
     quantize_wire`): the batch is then a bfloat16 / float16 tensor, or for
     int8 a {'q', 'scale'} dict; consumers restore float32 on the device
     (`core.precision.dequant_wire`), so the only effect is input
-    quantization. `device` defaults to the card.
+    quantization. `device` defaults to the card (under a mesh, the
+    mesh's device).
+
+    `sharding` (a `core.mesh.DataMesh`) makes each pass yield this rank's
+    block (B / world, H, W, C) of every global batch with the global
+    n_valid; `batch_size` must divide by the world size. `item_windows`,
+    the windows of each item (an int, or one count per dataset index),
+    lets the rank skip reading items that hold none of its rows.
     """
 
     def __init__(
@@ -65,14 +98,14 @@ class PrefetchLoader:
         indices: Optional[Sequence[int]] = None,
         transfer_dtype: Optional[str] = None,
         device=None,
-        sharding=None,
+        sharding: Optional[DataMesh] = None,
+        item_windows=None,
     ):
-        if sharding is not None:
-            raise NotImplementedError(
-                "a sharded (multi-process) stream loader is not ported yet: "
-                "ROADMAP Queue 1 item 11 (multi-GPU)")
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+        if sharding is not None and not isinstance(sharding, DataMesh):
+            raise TypeError(
+                f"sharding must be a core.mesh.DataMesh, got {sharding!r}")
         self.item_fn = item_fn
         self.indices = (list(indices) if indices is not None
                         else list(range(n_items)))
@@ -80,11 +113,34 @@ class PrefetchLoader:
         self.num_workers = max(1, int(num_workers))
         self.queue_depth = int(queue_depth)
         self._wire = wire_dtype(transfer_dtype)
-        self.device = resolve_device(device)
+        self.mesh = sharding
+        self._block = ((0, self.batch_size) if sharding is None
+                       else sharding.block(self.batch_size))
+        self.item_windows = item_windows
+        self._window_shape = None  # learnt from the first item read
+        self.device = resolve_device(
+            device if device is not None or sharding is None
+            else sharding.device)
 
-    def _reader(self, out_q: queue.Queue, stop: threading.Event) -> None:
-        """Fetch items with a pool of threads; deliver them in index order,
-        then None (or a `_ReaderError`)."""
+    def _skips(self) -> list:
+        """Per item position: its window count where this rank keeps none
+        of its windows (the item is not read), else None."""
+        if self.mesh is None or self.item_windows is None:
+            return [None] * len(self.indices)
+        wins = ([int(self.item_windows)] * len(self.indices)
+                if np.isscalar(self.item_windows)
+                else [int(self.item_windows[i]) for i in self.indices])
+        starts = np.concatenate([[0], np.cumsum(wins)]).astype(int)
+        lo, hi = self._block
+        return [None if _overlaps(int(starts[p]), int(starts[p + 1]), lo, hi,
+                                  self.batch_size) else wins[p]
+                for p in range(len(wins))]
+
+    def _reader(self, out_q: queue.Queue, stop: threading.Event,
+                skips: list) -> None:
+        """Fetch items with a pool of threads; deliver them (a `_Skip` for
+        an item `skips` names) in index order, then None (or a
+        `_ReaderError`)."""
 
         def put(item) -> bool:
             # a bounded put that notices an abandoned iterator: a plain
@@ -104,10 +160,13 @@ class PrefetchLoader:
                 submitted = 0
                 for pos in range(len(self.indices)):
                     while submitted < min(pos + lookahead, len(self.indices)):
-                        futures[submitted] = pool.submit(
-                            self.item_fn, self.indices[submitted])
+                        if skips[submitted] is None:
+                            futures[submitted] = pool.submit(
+                                self.item_fn, self.indices[submitted])
                         submitted += 1
-                    if not put(futures.pop(pos).result()):
+                    item = (futures.pop(pos).result() if skips[pos] is None
+                            else _Skip(skips[pos]))
+                    if not put(item):
                         return
         except Exception as e:  # noqa: BLE001
             # surfaced in the consumer: a reader that died silently would
@@ -125,31 +184,50 @@ class PrefetchLoader:
             return pinned.numpy(), pinned
         return np.empty(shape, np.float32), None
 
+    def _buffer(self):
+        """A new buffer for this rank's block of a batch."""
+        if self._window_shape is None:  # no item read yet: read one
+            self._window_shape = self.item_fn(self.indices[0]).shape[1:]
+        lo, hi = self._block
+        return self._new_buffer((hi - lo, *self._window_shape))
+
     def _host_batches(self, item_q: queue.Queue) -> Iterator:
-        """(batch (B, H, W, C) float32, its pinned tensor or None, n_valid),
-        the last one zero-padded: each item is copied once, straight into
-        its batch's buffer."""
-        out, pinned, have = None, None, 0
+        """(this rank's block (B / world, H, W, C) of a batch, float32, its
+        pinned tensor or None, the batch's n_valid), the last one
+        zero-padded: each kept window is copied once, straight into its
+        batch's buffer."""
+        bsz = self.batch_size
+        lo, hi = self._block
+        out, pinned, have = None, None, 0  # have: the batch's rows so far
         while True:
             item = item_q.get()
             if item is None:
                 break
             if isinstance(item, _ReaderError):
                 raise RuntimeError("prefetch reader failed") from item.error
+            skipped = isinstance(item, _Skip)
+            n = item.rows if skipped else len(item)
+            if not skipped:
+                self._window_shape = item.shape[1:]
             off = 0
-            while off < len(item):
-                if out is None:
-                    out, pinned = self._new_buffer(
-                        (self.batch_size, *item.shape[1:]))
-                take = min(self.batch_size - have, len(item) - off)
-                out[have:have + take] = item[off:off + take]
+            while off < n:
+                take = min(bsz - have, n - off)
+                a, b = max(have, lo), min(have + take, hi)  # rows kept
+                if a < b:
+                    if skipped:
+                        raise RuntimeError("a skipped item holds kept rows")
+                    if out is None:
+                        out, pinned = self._buffer()
+                    out[a - lo:b - lo] = item[off + a - have:off + b - have]
                 have += take
                 off += take
-                if have == self.batch_size:
+                if have == bsz:
                     yield out, pinned, have
                     out, pinned, have = None, None, 0
         if have:
-            out[have:] = 0
+            if out is None:  # none of the last batch's rows is this rank's
+                out, pinned = self._buffer()
+            out[max(have - lo, 0):] = 0
             yield out, pinned, have
 
     def _send(self, host: np.ndarray, pinned, stream):
@@ -179,7 +257,8 @@ class PrefetchLoader:
     def __iter__(self) -> Iterator:
         item_q: queue.Queue = queue.Queue(maxsize=self.queue_depth)
         stop = threading.Event()
-        reader = threading.Thread(target=self._reader, args=(item_q, stop),
+        reader = threading.Thread(target=self._reader,
+                                  args=(item_q, stop, self._skips()),
                                   daemon=True)
         reader.start()
         stream = (torch.cuda.Stream(self.device)
@@ -208,9 +287,11 @@ def zarr_prefetch_loader(
     sharding=None,
 ) -> PrefetchLoader:
     """PrefetchLoader over a `data.cube.ZarrCubeDataset` (or any dataset
-    with `item` and `__len__`)."""
+    with `item` and `__len__`; its `windows_per_item`, where it has one,
+    lets a rank of a mesh skip the items it keeps nothing of)."""
     return PrefetchLoader(
         dataset.item, len(dataset), batch_size, num_workers=num_workers,
         indices=indices, transfer_dtype=transfer_dtype, device=device,
         sharding=sharding,
+        item_windows=getattr(dataset, "windows_per_item", None),
     )

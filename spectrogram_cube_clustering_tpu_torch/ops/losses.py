@@ -37,16 +37,22 @@ def dec_loss(
     p: torch.Tensor,
     gamma: float,
     mask: Optional[torch.Tensor] = None,
+    nvalid: Optional[float] = None,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """DEC total loss and its (reconstruction, clustering) parts.
 
     `mask` (float, 1.0 = real row) drops padded rows out of both terms and
-    normalizes by the real count; None means every row is real."""
+    normalizes by the real count; None means every row is real. `nvalid`
+    replaces that count (at least 1): on a mesh, the real rows of the
+    whole batch, of which these rows are one rank's block."""
     if mask is None:
         mask = torch.ones(q.shape[0], dtype=x.dtype, device=x.device)
     d = x_rec - x
     per = torch.mean(d * d, dim=tuple(range(1, x.dim())))
-    nvalid = torch.clamp(torch.sum(mask), min=1.0)
+    if nvalid is None:
+        nvalid = torch.clamp(torch.sum(mask), min=1.0)
+    else:
+        nvalid = max(float(nvalid), 1.0)
     loss_rec = torch.sum(per * mask) / nvalid
     log_q = torch.log(torch.clamp(q, min=torch.finfo(q.dtype).tiny))
     row_kld = torch.sum(xlogy(p, p) - p * log_q, dim=-1)

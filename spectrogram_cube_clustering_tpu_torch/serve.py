@@ -20,8 +20,9 @@ normalizer, so the only effect is input quantization.
 
 `arch` is "AEC" (the parity model) or "packed" (models/packed.py, the
 (4, 101) geometry only), for both predictors, their `from_checkpoint` and
-so for the waveform frontend. Not ported yet: mesh serving, which raises
-NotImplementedError (ROADMAP.md Queue 1, Multi-GPU).
+so for the waveform frontend. Not ported yet: mesh serving (`mesh=`), the
+next slice of multi-GPU, which raises NotImplementedError (ROADMAP.md
+Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -57,7 +58,8 @@ from spectrogram_cube_clustering_tpu_torch.utils.weights import (
 def _check_ported(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
-            "mesh serving is not ported yet (ROADMAP.md Queue 1, Multi-GPU)"
+            "mesh serving is not ported yet: the next slice of multi-GPU "
+            "(ROADMAP.md Queue 1 item 11)"
         )
 
 

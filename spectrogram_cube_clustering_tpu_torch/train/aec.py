@@ -18,6 +18,15 @@ one step per batch, losses kept on the device until the epoch ends.
 Every step and eval takes a `core.precision.Precision` (`precision=`,
 default float32): its forward passes run in the policy's autocast, the
 loss in float32.
+
+Under a mesh (the state's and the data's `core.mesh.DataMesh`) each rank
+holds a block of every batch. A batch's loss is the JAX package's masked
+mean over the whole global batch, sum(per * mask) / max(sum(mask), 1):
+each rank computes its block's masked sum over the global count, the
+state sums the gradients over the ranks (`train/state.py`), and the
+epoch's loss sums are added over the ranks once an epoch, so histories,
+early stopping and checkpoints are the same on every rank. Only rank 0
+writes checkpoints and snapshots.
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from spectrogram_cube_clustering_tpu_torch.core.mesh import DataMesh
 from spectrogram_cube_clustering_tpu_torch.core.precision import (
     DEFAULT,
     Precision,
@@ -50,37 +60,48 @@ class AECConfig:
 
 
 def _batch_loss(model, x: torch.Tensor, mask: torch.Tensor,
-                precision: Precision):
-    """(masked mean-squared error over real rows, their count)."""
+                nvalid: torch.Tensor, precision: Precision):
+    """Masked mean-squared error: the sum over the real rows of `x` over
+    `nvalid`, the batch's real rows (on a mesh, of the whole batch)."""
     with precision.autocast(x.device):
         x_rec, _ = model(x)
     d = x_rec - x  # float32: x is, and a bfloat16 x_rec promotes
     per = torch.mean(d * d, dim=tuple(range(1, x.dim())))
-    nvalid = torch.clamp(torch.sum(mask), min=1.0)
-    return torch.sum(per * mask) / nvalid, nvalid
+    return torch.sum(per * mask) / nvalid
+
+
+def _epoch_mean(sums: torch.Tensor, data: BatchedData) -> float:
+    """The epoch's loss from its per-batch loss * count sums: added over
+    the ranks on a mesh, over every real sample."""
+    if data.mesh is not None:
+        data.mesh.sum_(sums)
+    return float(sums / torch.clamp(torch.sum(data.counts), min=1.0))
 
 
 def train_epoch(state: TrainState, data: BatchedData,
                 precision: Precision = DEFAULT) -> float:
     """One pass of Adam steps over every batch; the epoch's mean loss."""
     model = state.model
+    counts = torch.clamp(data.counts, min=1.0)
     sums = torch.zeros((), dtype=torch.float32, device=data.x.device)
     for i in range(data.n_batches):
-        loss, nvalid = _batch_loss(model, data.x[i], data.mask[i], precision)
+        loss = _batch_loss(model, data.x[i], data.mask[i], counts[i],
+                           precision)
         loss.backward()
         state.apply_gradients()
-        sums += loss.detach() * nvalid
-    return float(sums / torch.clamp(torch.sum(data.mask), min=1.0))
+        sums += loss.detach() * counts[i]
+    return _epoch_mean(sums, data)
 
 
 @torch.no_grad()
 def eval_epoch(model, data: BatchedData,
                precision: Precision = DEFAULT) -> float:
+    counts = torch.clamp(data.counts, min=1.0)
     sums = torch.zeros((), dtype=torch.float32, device=data.x.device)
     for i in range(data.n_batches):
-        loss, nvalid = _batch_loss(model, data.x[i], data.mask[i], precision)
-        sums += loss * nvalid
-    return float(sums / torch.clamp(torch.sum(data.mask), min=1.0))
+        sums += _batch_loss(model, data.x[i], data.mask[i], counts[i],
+                            precision) * counts[i]
+    return _epoch_mean(sums, data)
 
 
 def _run_epochs(
@@ -98,7 +119,8 @@ def _run_epochs(
     epoch and returns its (training, validation) loss; this loop keeps
     the history, early stopping, checkpoints and snapshots (every
     `snapshot_every` epochs, at the early stop and after the last epoch),
-    and resumes from a snapshot."""
+    and resumes from a snapshot. Under a mesh the losses `run_epoch`
+    returns are global, so every rank takes the same decisions."""
     if state.model is not model:
         raise ValueError("state must optimize the model being trained")
     best_val = float("inf")
@@ -214,16 +236,21 @@ def train_aec(
                        save_checkpoint, snapshot_path, 1, resume)
 
 
-def make_step_fns(model, precision: Precision = DEFAULT):
+def make_step_fns(model, precision: Precision = DEFAULT,
+                  mesh: Optional[DataMesh] = None):
     """(train_step(state, x, n_valid) -> loss, eval_step(x, n_valid) ->
     loss) for the streaming path: the masked MSE over the first n_valid
     rows of a loader batch, restored to float32 on the device first (the
     loader's wire encodings, `core.precision.dequant_wire`). Losses are
-    0-d tensors on the batch's device."""
+    0-d tensors on the batch's device. Under a `mesh`, `x` is this rank's
+    block of a global batch whose first n_valid rows are real, and the
+    loss is the block's share of the global one (summed over the ranks,
+    it is the batch's loss)."""
 
     def loss_fn(x, n_valid: int):
         x = dequant_wire(x)
-        mask = (torch.arange(x.shape[0], device=x.device)
+        lo = 0 if mesh is None else mesh.rank * x.shape[0]
+        mask = (torch.arange(lo, lo + x.shape[0], device=x.device)
                 < n_valid).to(x.dtype)
         with precision.autocast(x.device):
             x_rec, _ = model(x)
@@ -244,12 +271,17 @@ def make_step_fns(model, precision: Precision = DEFAULT):
     return train_step, eval_step
 
 
-def _weighted_mean(losses: List[torch.Tensor], ns: List[int]) -> float:
+def _weighted_mean(losses: List[torch.Tensor], ns: List[int],
+                   mesh: Optional[DataMesh] = None) -> float:
     """Batch losses weighted by their valid rows, in float64 on the host
-    (one device sync for the epoch)."""
+    (one device sync for the epoch); under a `mesh` the ranks' shares are
+    added first."""
     if not losses:
         return 0.0
-    ln = torch.stack(losses).cpu().numpy().astype(np.float64)
+    ln = torch.stack(losses)
+    if mesh is not None:
+        mesh.sum_(ln)
+    ln = ln.cpu().numpy().astype(np.float64)
     nn = np.asarray(ns, np.float64)
     return float((ln * nn).sum() / max(nn.sum(), 1))
 
@@ -271,21 +303,22 @@ def train_aec_stream(
     `make_val_loader`, else the training loss). With `snapshot_path` a
     snapshot is written every `snapshot_every` epochs, at the early stop
     and after the last epoch; `resume=True` continues from it."""
-    train_step, eval_step = make_step_fns(model, precision)
+    mesh = state.mesh
+    train_step, eval_step = make_step_fns(model, precision, mesh)
 
     def run_epoch(state):
         losses, ns = [], []
         for x, n_valid in make_loader():
             losses.append(train_step(state, x, n_valid))
             ns.append(n_valid)
-        tra_loss = _weighted_mean(losses, ns)
+        tra_loss = _weighted_mean(losses, ns, mesh)
         if make_val_loader is None:
             return tra_loss, tra_loss
         vl, vn = [], []
         for x, n_valid in make_val_loader():
             vl.append(eval_step(x, n_valid))
             vn.append(n_valid)
-        return tra_loss, _weighted_mean(vl, vn)
+        return tra_loss, _weighted_mean(vl, vn, mesh)
 
     return _run_epochs(model, state, config, run_epoch,
                        snapshot_path=snapshot_path,

@@ -14,6 +14,11 @@ JAX package's `train/checkpoint.py`).
   It is replaced atomically: the old snapshot is renamed aside to `.old`,
   the new one renamed in, then `.old` dropped, and a restore falls back to
   `.old` when a crash landed between the two renames.
+
+Under a mesh every rank holds the same params, so nothing is gathered:
+only rank 0 writes, and every rank waits at a barrier before returning,
+so no rank reads a file that is not yet complete (`save(mesh=)`;
+`save_snapshot` takes the mesh of the state it saves).
 """
 
 from __future__ import annotations
@@ -25,6 +30,11 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
 
+from spectrogram_cube_clustering_tpu_torch.core.mesh import (
+    DataMesh,
+    is_primary,
+    sync,
+)
 from spectrogram_cube_clustering_tpu_torch.train.state import TrainState
 
 _STATE_FILE = "state.pt"
@@ -39,12 +49,16 @@ def _to_cpu(tree: Any) -> Any:
     return tree
 
 
-def save(path: str, state_dict: Mapping[str, torch.Tensor]) -> str:
-    """Write a state_dict to the file `path`, overwriting it."""
+def save(path: str, state_dict: Mapping[str, torch.Tensor],
+         mesh: Optional[DataMesh] = None) -> str:
+    """Write a state_dict to the file `path`, overwriting it (under a
+    `mesh`, rank 0 writes and every rank waits for it)."""
     path = os.path.abspath(path)
-    tmp = path + ".tmp"
-    torch.save(_to_cpu(dict(state_dict)), tmp)
-    os.replace(tmp, path)
+    if is_primary(mesh):
+        tmp = path + ".tmp"
+        torch.save(_to_cpu(dict(state_dict)), tmp)
+        os.replace(tmp, path)
+    sync(mesh)
     return path
 
 
@@ -90,8 +104,17 @@ def save_snapshot(
 ) -> str:
     """Atomically persist the train state (model, optimizer, step), JSON
     loop metadata and an optional extra tree of tensors, replacing any
-    snapshot at `path`."""
+    snapshot at `path` (under the state's mesh, rank 0 writes and every
+    rank waits for it)."""
     path = os.path.abspath(path)
+    if is_primary(state.mesh):
+        _write_snapshot(path, state, meta, extra)
+    sync(state.mesh)
+    return path
+
+
+def _write_snapshot(path: str, state: TrainState, meta: dict,
+                    extra: Optional[Any]) -> None:
     tmp = path + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
@@ -117,7 +140,6 @@ def save_snapshot(
     os.rename(tmp, path)
     if os.path.exists(old):
         shutil.rmtree(old)
-    return path
 
 
 def snapshot_exists(path: str) -> bool:

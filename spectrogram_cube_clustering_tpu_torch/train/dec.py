@@ -26,6 +26,19 @@ The forward passes of the steps and evals run in the autocast of a
 `core.precision.Precision` (`precision=`, default float32); their q, z
 and reconstructions leave in float32, so the refreshes' target
 distribution and the cluster init are float32 statistics.
+
+Under a mesh (the state's and the data's `core.mesh.DataMesh`) each rank
+holds a block of every batch. The full evals gather q and z whole onto
+every rank (`train.layout.fetch_global`), so the target distribution p,
+the labels, delta and the stop are computed whole and alike on every
+rank, and each step takes p's rows of its own block. The cluster init
+runs on the gathered latents from the same seed on every rank, and rank
+0's centroids are then broadcast, so that a reduction whose order varies
+on a card cannot start the ranks apart. A batch's loss is the JAX
+package's masked mean over the global batch (`_dec_loss`): each rank's
+block's sum over the global count, the gradients summed over the ranks
+(`train/state.py`), the history's losses added over the ranks once a
+segment.
 """
 
 from __future__ import annotations
@@ -37,6 +50,7 @@ import numpy as np
 import torch
 
 from spectrogram_cube_clustering_tpu_torch.core.device import fp32_policy_for
+from spectrogram_cube_clustering_tpu_torch.core.mesh import DataMesh
 from spectrogram_cube_clustering_tpu_torch.core.precision import (
     DEFAULT,
     Precision,
@@ -49,7 +63,10 @@ from spectrogram_cube_clustering_tpu_torch.ops.student_t import (
     target_distribution,
 )
 from spectrogram_cube_clustering_tpu_torch.train import checkpoint as ckpt
-from spectrogram_cube_clustering_tpu_torch.train.layout import BatchedData
+from spectrogram_cube_clustering_tpu_torch.train.layout import (
+    BatchedData,
+    fetch_global,
+)
 from spectrogram_cube_clustering_tpu_torch.train.state import (
     TrainState,
     params_copy,
@@ -79,23 +96,30 @@ def full_eval(model, data: BatchedData, with_xr: bool = False,
               precision: Precision = DEFAULT):
     """Full-dataset inference: (q (M, K) rounded to 5 decimals, labels (M,)
     int32, z (M, D)), plus the reconstructions (M, H, W, C) when
-    `with_xr`, all float32. Reference: batch_eval (models.py:41-103)."""
+    `with_xr`, all float32. Reference: batch_eval (models.py:41-103).
+    Under the data's mesh each rank runs its blocks and every rank gets
+    the whole outputs."""
     fp32_policy_for(data.x.device)
-    m = data.n_samples
-    x = data.x.reshape(-1, *data.x.shape[2:])[:m]
+    m, mesh = data.n_samples, data.mesh
+    x = data.x.reshape(-1, *data.x.shape[2:])
+    if mesh is None:
+        x = x[:m]
     qs, zs, xrs = [], [], []
-    for lo in range(0, m, EVAL_ROWS):
+    for lo in range(0, len(x), EVAL_ROWS):
         with precision.autocast(x.device):
             q, x_rec, z = model(x[lo:lo + EVAL_ROWS])
         qs.append(q.float())
         zs.append(z.float())
         if with_xr:
             xrs.append(x_rec.float())
-    q = torch.round(torch.cat(qs), decimals=5)
+    outs = [torch.cat(t) for t in ((qs, zs, xrs) if with_xr else (qs, zs))]
+    if mesh is not None:  # (NB, B / world, ...) blocks -> (M, ...)
+        outs = [fetch_global(t.reshape(data.n_batches, -1, *t.shape[1:]),
+                             mesh, axis=1).reshape(-1, *t.shape[1:])[:m]
+                for t in outs]
+    q = torch.round(outs[0], decimals=5)
     labels = torch.argmax(q, dim=1).to(torch.int32)
-    if with_xr:
-        return q, labels, torch.cat(zs), torch.cat(xrs)
-    return q, labels, torch.cat(zs)
+    return (q, labels, *outs[1:])
 
 
 def initialize_clusters(
@@ -112,13 +136,14 @@ def initialize_clusters(
     return _init_clusters(
         model, config, data.n_samples, initial,
         lambda: full_eval(model, data, precision=precision)[2],
-        data.x.device)
+        data.x.device, data.mesh)
 
 
 def _init_clusters(model, config: DECConfig, n_samples: int, initial,
-                   latents, device):
+                   latents, device, mesh: Optional[DataMesh] = None):
     """`initialize_clusters` with the latents from `latents()`, called
-    only for kmeans and gmm."""
+    only for kmeans and gmm; under a `mesh`, rank 0's result on every
+    rank."""
     from spectrogram_cube_clustering_tpu_torch import cluster
 
     k = config.n_clusters
@@ -141,10 +166,12 @@ def _init_clusters(model, config: DECConfig, n_samples: int, initial,
             kmeans_max_iter=config.kmeans_max_iter, seed=config.seed)
     else:
         raise ValueError(f"unknown init {config.init!r}")
-    return (
-        torch.as_tensor(labels, device=device).to(torch.int32),
-        torch.as_tensor(centroids, device=device).to(torch.float32),
-    )
+    labels = torch.as_tensor(labels, device=device).to(torch.int32)
+    centroids = torch.as_tensor(centroids, device=device).to(torch.float32)
+    if mesh is not None:
+        mesh.broadcast_(labels)
+        mesh.broadcast_(centroids)
+    return labels, centroids
 
 
 def _flush(per: np.ndarray, running, history, n_iter, log_scalar):
@@ -216,10 +243,14 @@ def _train_dec(model, state, config: DECConfig, batches, evaluate, m: int,
     """The refinement of both paths. `batches()` yields one epoch's
     (batch, n_valid) in sample order, the same every pass: the target p
     is sliced by the running sample offset. `evaluate()` is the full eval,
-    (q rounded to 5 decimals and int32 labels on `device`, z)."""
+    (q rounded to 5 decimals and int32 labels on `device`, z), whole on
+    every rank under the state's mesh, whose batches are each rank's
+    block."""
     if state.model is not model:
         raise ValueError("state must optimize the model being trained")
-    train_step = make_stream_fns(model, config.gamma, precision)[0]
+    mesh = state.mesh
+    world = 1 if mesh is None else mesh.world
+    train_step = make_stream_fns(model, config.gamma, precision, mesh)[0]
     history: Dict[str, List[float]] = {
         "iteration": [], "reconstruction": [], "clustering": [], "total": [],
     }
@@ -240,7 +271,8 @@ def _train_dec(model, state, config: DECConfig, batches, evaluate, m: int,
     else:
         labels_prev, centroids = _init_clusters(
             model, config, m, initial,
-            lambda: torch.as_tensor(evaluate()[2], device=device), device)
+            lambda: torch.as_tensor(evaluate()[2], device=device), device,
+            mesh)
         replace_centroids(model, centroids)
         initial_params = params_copy(model)
         q, _, z0 = evaluate()
@@ -264,13 +296,16 @@ def _train_dec(model, state, config: DECConfig, batches, evaluate, m: int,
             if not pending:
                 return np.zeros((0, 4))
             vals = torch.stack([torch.stack(b[:3]) for b in pending])
+            if mesh is not None:  # each rank's share of the batch losses
+                mesh.sum_(vals)
             vals = vals.cpu().numpy().astype(np.float64)
             nvs = np.asarray([b[3] for b in pending], np.float64)
             pending.clear()
             return np.concatenate([vals * nvs[:, None], nvs[:, None]], axis=1)
 
         for x, n_valid in batches():
-            bsz = wire_array(x).shape[0]
+            block = wire_array(x).shape[0]
+            bsz = block * world  # the global batch
             if config.update_interval == -1:
                 update_interval = max(int(np.ceil(m / (bsz * 2))), 1)
             else:
@@ -300,6 +335,8 @@ def _train_dec(model, state, config: DECConfig, batches, evaluate, m: int,
                 p_slice = torch.cat(
                     [p_slice, p_slice.new_zeros((bsz - len(p_slice),
                                                  p.shape[1]))])
+            if mesh is not None:
+                p_slice = p_slice[mesh.rank * block:(mesh.rank + 1) * block]
             loss, rec, clust = train_step(state, x, p_slice, n_valid)
             pending.append((loss, rec, clust, n_valid))
             offset += n_valid
@@ -345,20 +382,26 @@ def _train_dec(model, state, config: DECConfig, batches, evaluate, m: int,
 # ---------------------------------------------------------------- streaming
 
 
-def make_stream_fns(model, gamma: float, precision: Precision = DEFAULT):
+def make_stream_fns(model, gamma: float, precision: Precision = DEFAULT,
+                    mesh: Optional[DataMesh] = None):
     """(train_step(state, x, p, n_valid) -> (loss, rec, clust),
     eval_step(x) -> (q rounded to 5 decimals, z)) for the streaming path:
     the loss of `train_dec` over the first n_valid rows of a loader batch,
     restored to float32 on the device first (`core.precision.
-    dequant_wire`)."""
+    dequant_wire`). Under a `mesh`, `x` and `p` are this rank's block of a
+    global batch whose first n_valid rows are real, and the losses are the
+    block's shares of the global ones (`_dec_loss` of the JAX package:
+    the masked sums over the global count)."""
 
     def train_step(state: TrainState, x, p: torch.Tensor, n_valid: int):
         x = dequant_wire(x)
-        mask = (torch.arange(x.shape[0], device=x.device)
+        lo = 0 if mesh is None else mesh.rank * x.shape[0]
+        mask = (torch.arange(lo, lo + x.shape[0], device=x.device)
                 < n_valid).to(x.dtype)
         with precision.autocast(x.device):
             q_b, x_rec, _ = model(x)
-        loss, (rec, clust) = dec_loss(x_rec, x, q_b, p, gamma, mask=mask)
+        loss, (rec, clust) = dec_loss(x_rec, x, q_b, p, gamma, mask=mask,
+                                      nvalid=n_valid)
         loss.backward()
         state.apply_gradients()
         return loss.detach(), rec.detach(), clust.detach()
@@ -373,20 +416,27 @@ def make_stream_fns(model, gamma: float, precision: Precision = DEFAULT):
     return train_step, eval_step
 
 
-def full_eval_stream(eval_step, make_loader, m_total: int):
+def full_eval_stream(eval_step, make_loader, m_total: int,
+                     mesh: Optional[DataMesh] = None):
     """Streamed full-dataset eval: (q (M, K), labels (M,), z (M, D)) as
     numpy. Each batch's outputs stay on the device until the loader is
-    exhausted: a fetch per batch would stall the pipeline on every step."""
+    exhausted: a fetch per batch would stall the pipeline on every step.
+    Under a `mesh` the loader yields each rank's block of every batch, and
+    the blocks are gathered whole onto every rank at the end."""
     qs, zs = [], []
     seen = 0
     for x, n_valid in make_loader():
         q, z = eval_step(x)
         take = min(n_valid, m_total - seen)
-        qs.append(q[:take])
-        zs.append(z[:take])
+        qs.append(q if mesh is not None else q[:take])
+        zs.append(z if mesh is not None else z[:take])
         seen += take
-    q = torch.cat(qs).cpu().numpy()
-    z = torch.cat(zs).cpu().numpy()
+    if mesh is None:
+        q, z = torch.cat(qs), torch.cat(zs)
+    else:  # (batches, block, ...) -> the (M, ...) rows in order
+        q, z = (fetch_global(torch.stack(t), mesh, axis=1)
+                .reshape(-1, t[0].shape[1])[:m_total] for t in (qs, zs))
+    q, z = q.cpu().numpy(), z.cpu().numpy()
     return q, q.argmax(axis=1), z
 
 
@@ -407,13 +457,16 @@ def train_dec_stream(
     (device batch, n_valid) in the same order every pass. Semantics and
     result are `train_dec`'s; each refresh streams the whole dataset
     through `full_eval_stream`. `snapshot_path`/`resume` as in
-    `train_dec` (the snapshot holds p and the previous labels)."""
+    `train_dec` (the snapshot holds p and the previous labels). Under the
+    state's mesh, `make_loader()` yields each rank's block of every batch
+    (`data.PrefetchLoader(sharding=mesh)`)."""
     eval_step = make_stream_fns(model, config.gamma, precision)[1]
     device = next(model.parameters()).device
     fp32_policy_for(device)
 
     def evaluate():
-        q, labels, z = full_eval_stream(eval_step, make_loader, m_total)
+        q, labels, z = full_eval_stream(eval_step, make_loader, m_total,
+                                        state.mesh)
         return (torch.from_numpy(q).to(device),
                 torch.from_numpy(labels).to(device, torch.int32), z)
 

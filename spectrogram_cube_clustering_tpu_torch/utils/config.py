@@ -3,8 +3,10 @@
 A copy of the JAX package's `utils/config.py` (reference Cluster/utils.py
 `Configuration`, `config_training`), with two changes:
 
-- serials come from the local clock alone (no multi-process agreement:
-  the port runs one process);
+- under a `torch.distributed` group, rank 0's serial is broadcast to
+  every rank (the JAX package's `_agree_across_processes` over
+  `jax.distributed`), so that every rank writes to the same run
+  directory;
 - `set_device` picks a `torch.device`: the card by default (it raises
   when there is none), the CPU or a card index when asked, by argument or
   by a `device` key in the ini.
@@ -111,10 +113,33 @@ def parse_nclusters(line: str) -> int:
     return int(match.group("n_clusters"))
 
 
+def _agree_across_processes(stamp: datetime) -> datetime:
+    """Rank 0's `stamp` on every rank of a `torch.distributed` group of
+    more than one rank (on the default mesh's device); `stamp` itself
+    otherwise. Serials name the run directories, and the ranks of a mesh
+    write to and wait on the same ones."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized() or dist.get_world_size() <= 1:
+        return stamp
+    from spectrogram_cube_clustering_tpu_torch.core.mesh import (
+        make_data_mesh,
+    )
+
+    mesh = make_data_mesh()
+    micros = torch.tensor(
+        [stamp.microsecond
+         + 1_000_000 * int(stamp.replace(microsecond=0).timestamp())],
+        dtype=torch.int64, device=mesh.device)
+    sec, usec = divmod(int(mesh.broadcast_(micros).item()), 1_000_000)
+    return datetime.fromtimestamp(sec).replace(microsecond=usec)
+
+
 def _serial() -> str:
     # microseconds: second-resolution serials (utils.py:64) collide for
     # sweep runs started within 1 s
-    return datetime.now().strftime("%Y%m%dT%H%M%S%f")
+    return _agree_across_processes(datetime.now()).strftime(
+        "%Y%m%dT%H%M%S%f")
 
 
 class Configuration:

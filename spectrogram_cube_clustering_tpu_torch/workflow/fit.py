@@ -13,6 +13,12 @@ ini's `tsne_backend = jax` selects the port's on-device t-SNE
 package's spelling, since one ini drives both packages), any other value
 the sklearn one. The cluster-count diagnostics (`km_metrics`) are ROADMAP
 Queue 1 item 16 and raise.
+
+With a mesh (`core.mesh.DataMesh`) every rank loads the latents, the fit
+runs split over the ranks (`parallel.sharded_gmm`: its statistics summed
+over them, EM at most 100 iterations as in the JAX package's mesh path),
+every rank gets the labels, and rank 0 alone draws the t-SNE and writes
+the files.
 """
 
 from __future__ import annotations
@@ -26,11 +32,13 @@ import torch
 from spectrogram_cube_clustering_tpu_torch import cluster as _cluster
 from spectrogram_cube_clustering_tpu_torch.analysis import plotting
 from spectrogram_cube_clustering_tpu_torch.core.device import resolve_device
+from spectrogram_cube_clustering_tpu_torch.core.mesh import is_primary, sync
 from spectrogram_cube_clustering_tpu_torch.utils.history import save_labels
 from spectrogram_cube_clustering_tpu_torch.workflow.data import load_data
 from spectrogram_cube_clustering_tpu_torch.workflow.train import (
     check_figure_packages,
     check_not_ported,
+    use_mesh,
     write_z_pointer,
 )
 
@@ -50,15 +58,18 @@ def _tsne(config, z) -> np.ndarray:
 
 def gmm_fit(config, figures: bool = True, mesh=None) -> List[Dict]:
     """Run the n_clusters sweep. Returns per-run dicts of numpy labels and
-    centroids."""
-    check_not_ported(config, mesh)
+    centroids. With a `mesh`, every rank of it calls this with the same
+    config."""
+    check_not_ported(config)
     if figures:
         check_figure_packages(config)
+    use_mesh(config, mesh)
+    primary = is_primary(mesh)
     z = load_data(config)
     print(f"Dataset has {len(z)} samples.")
     # one embedding for the whole sweep: z and the seed do not change
     # between the swept K, only the colouring does
-    tsne_results = _tsne(config, z) if figures else None
+    tsne_results = _tsne(config, z) if figures and primary else None
     z_src = os.path.join(
         os.path.abspath(os.path.join(config.saved_weights, os.pardir)),
         "Prediction", "Z_AEC.npy",
@@ -68,14 +79,31 @@ def gmm_fit(config, figures: bool = True, mesh=None) -> List[Dict]:
         print("-" * 80)
         print(f"GMM Run {run_count}/{config.runs}: n_clusters={n_clusters}")
         config.init_output_env(n_clusters=n_clusters)
-        labels, centroids = _cluster.gmm(
-            z, int(n_clusters),
+        fit_args = dict(
             n_init=int(getattr(config, "km_n_init", 100)),
-            kmeans_max_iter=int(getattr(config, "km_max_iter", 1000)),
-            seed=int(getattr(config, "seed", 2009) or 2009),
-        )
+            seed=int(getattr(config, "seed", 2009) or 2009))
+        if mesh is None:
+            labels, centroids = _cluster.gmm(
+                z, int(n_clusters),
+                kmeans_max_iter=int(getattr(config, "km_max_iter", 1000)),
+                **fit_args)
+        else:
+            from spectrogram_cube_clustering_tpu_torch.parallel import (
+                sharded_gmm,
+            )
+
+            labels, centroids = sharded_gmm(
+                z, int(n_clusters), mesh,
+                kmeans_n_iter=int(getattr(config, "km_max_iter", 1000)),
+                **fit_args)
         labels = labels.cpu().numpy()
         centroids = centroids.cpu().numpy()
+        results.append(
+            {"n_clusters": int(n_clusters), "labels": labels,
+             "centroids": centroids, "savepath_run": config.savepath_run}
+        )
+        if not primary:
+            continue
         save_labels(labels, config.savepath_run)
         np.save(os.path.join(config.savepath_run, "labels"), labels)
         np.save(os.path.join(config.savepath_run, "centroids"), centroids)
@@ -86,8 +114,5 @@ def gmm_fit(config, figures: bool = True, mesh=None) -> List[Dict]:
             fig = plotting.view_tsne(tsne_results, labels, "GMM")
             fig.savefig(os.path.join(config.savepath_run, "t-SNE.png"),
                         dpi=300, facecolor="w")
-        results.append(
-            {"n_clusters": int(n_clusters), "labels": labels,
-             "centroids": centroids, "savepath_run": config.savepath_run}
-        )
+    sync(mesh)
     return results

@@ -1,7 +1,7 @@
 """Workflow: full-catalog inference (counterpart of the JAX package's
 `workflow/predict.py`; reference Cluster/production.py:65-106,
-models.py:577-733), one device, with `loadmode = ram` or `stream`
-(`_predict_stream`).
+models.py:577-733), on one device or a mesh, with `loadmode = ram` or
+`stream` (`_predict_stream`).
 
 The forward pass runs on `config.device` in chunks of
 `batch_size_predict` windows (default 4096, production.py:68). Artifacts
@@ -38,6 +38,13 @@ whose windows are read again; its figures are drawn on that subsample.
 `stream_transfer_dtype` sets the wire both ways: the loader's batches up,
 the reconstructions down (restored to float32 on the host). The artifact
 names are the ram path's.
+
+With a mesh (`core.mesh.DataMesh`) each rank runs the model over its block
+of every batch (the predict batch rounded up to a multiple of the world
+size), the outputs are gathered whole onto every rank, and rank 0 alone
+writes the artifact tree, the single-device one file for file (on the
+stream path the reconstructions are gathered in float32, restored from
+the wire on the device).
 """
 
 from __future__ import annotations
@@ -52,6 +59,11 @@ import torch
 from spectrogram_cube_clustering_tpu_torch import cluster as _cluster
 from spectrogram_cube_clustering_tpu_torch.analysis import plotting
 from spectrogram_cube_clustering_tpu_torch.core.device import resolve_device
+from spectrogram_cube_clustering_tpu_torch.core.mesh import (
+    is_primary,
+    pad_to_multiple,
+    sync,
+)
 from spectrogram_cube_clustering_tpu_torch.core.precision import (
     dequant_wire,
     quantize_tensor,
@@ -71,6 +83,7 @@ from spectrogram_cube_clustering_tpu_torch.workflow.train import (
     load_aec_params,
     make_model,
     resolve_z_aec_path,
+    use_mesh,
 )
 
 PREDICT_BATCH = 4096  # reference production.py:68
@@ -82,9 +95,25 @@ def _to_nchw_np(x: torch.Tensor) -> np.ndarray:
 
 
 @torch.no_grad()
-def _forward(model, x: torch.Tensor, batch: int, precision):
+def _forward(model, x: torch.Tensor, batch: int, precision, mesh=None):
     """The model over x in chunks of `batch` rows, in the precision
-    policy's autocast; its outputs concatenated along the rows, float32."""
+    policy's autocast; its outputs concatenated along the rows, float32.
+    Under a `mesh` each rank runs its block of every chunk (`batch`
+    rounded up to a multiple of the world size) and every rank gets the
+    whole outputs."""
+    if mesh is not None:
+        from spectrogram_cube_clustering_tpu_torch.train.layout import (
+            fetch_global,
+            make_batched_data,
+        )
+
+        data = make_batched_data(
+            x, pad_to_multiple(min(batch, len(x)), mesh.world), mesh)
+        outs = [_forward(model, xb, len(xb), precision) for xb in data.x]
+        return tuple(
+            fetch_global(torch.stack(parts), mesh, axis=1)
+            .reshape(-1, *parts[0].shape[1:])[:len(x)]
+            for parts in zip(*outs))
     outs = []
     for lo in range(0, len(x), batch):
         with precision.autocast(x.device):
@@ -93,18 +122,29 @@ def _forward(model, x: torch.Tensor, batch: int, precision):
 
 
 def predict(config, mesh=None, figures: bool = True) -> Dict:
-    """Run inference and write the artifact tree. Returns numpy arrays."""
+    """Run inference and write the artifact tree. Returns numpy arrays.
+    With a `mesh`, every rank of it calls this with the same config."""
     if config.model not in ("AEC", "DEC"):
         raise ValueError(
             f"unknown model {config.model!r} for mode='predict' "
             "(GMM fitting/inference runs via mode='fit' / workflow.gmm_fit)"
         )
-    check_not_ported(config, mesh)
+    check_not_ported(config)
     figures = figures and config.model == "DEC"  # an AEC predict draws none
     if figures:
         check_figure_packages(config)
+    use_mesh(config, mesh)
     if getattr(config, "loadmode", None) == "stream":
-        return _predict_stream(config, figures)
+        out = _predict_stream(config, figures, mesh)
+    else:
+        out = _predict_ram(config, figures, mesh)
+    sync(mesh)
+    return out
+
+
+def _predict_ram(config, figures: bool, mesh=None) -> Dict:
+    """`loadmode = ram` inference (see the module docstring)."""
+    primary = is_primary(mesh)
     x = _normalize(config, load_data(config))
     print(f"Dataset has {len(x)} samples.")
     savepath = config.savepath_exp
@@ -113,25 +153,26 @@ def predict(config, mesh=None, figures: bool = True) -> Dict:
     precision = _precision(config)
 
     if config.model == "DEC":
-        q, xr, z = _forward(model, x, batch, precision)
+        q, xr, z = _forward(model, x, batch, precision, mesh)
         q = torch.round(q, decimals=5)
         q_np = q.cpu().numpy()
         z_np = z.cpu().numpy()
         labels_np = torch.argmax(q, dim=1).to(torch.int32).cpu().numpy()
         centroids_np = model.clustering.weights.detach().cpu().numpy()
-        save_labels(labels_np, savepath)
-        np.save(os.path.join(savepath, "q_DEC"), q_np)
-        np.save(os.path.join(savepath, "Z_DEC"), z_np)
-        np.save(os.path.join(savepath, "Xr_DEC"), _to_nchw_np(xr))
-        np.save(os.path.join(savepath, "labels_DEC"), labels_np)
-        np.save(os.path.join(savepath, "centroids_DEC"), centroids_np)
+        if primary:
+            save_labels(labels_np, savepath)
+            np.save(os.path.join(savepath, "q_DEC"), q_np)
+            np.save(os.path.join(savepath, "Z_DEC"), z_np)
+            np.save(os.path.join(savepath, "Xr_DEC"), _to_nchw_np(xr))
+            np.save(os.path.join(savepath, "labels_DEC"), labels_np)
+            np.save(os.path.join(savepath, "centroids_DEC"), centroids_np)
         silh_cap = getattr(config, "silh_max_samples", None)
         metrics = _cluster.cluster_metrics(
-            savepath, labels_np, _to_nchw_np(x), z_np,
+            savepath, labels_np, _to_nchw_np(x), z_np, save=primary,
             silh_max_samples=int(silh_cap) if silh_cap else None,
             device=x.device,
         )
-        if figures:
+        if figures and primary:
             _draw_dec_figures(config, model, precision, x.cpu().numpy(),
                               z_np, labels_np, centroids_np, metrics)
         return {
@@ -140,17 +181,18 @@ def predict(config, mesh=None, figures: bool = True) -> Dict:
         }
 
     # AEC mode (models.py:705-733)
-    xr, z = _forward(model, x, batch, precision)
+    xr, z = _forward(model, x, batch, precision, mesh)
     per = torch.mean((xr - x) ** 2, dim=(1, 2, 3))
     total_loss = float(per.sum(dtype=torch.float64) / max(len(x), 1))
     z_np = z.cpu().numpy()
     xr_np = _to_nchw_np(xr)
     print(f"Dataset MSE = {total_loss:.4e}")
-    with open(os.path.join(savepath, "MSE.txt"), "w") as f:
-        f.write(f"MSE = {total_loss:.4e}")
-    np.save(os.path.join(savepath, "Loss_AEC"), total_loss)
-    np.save(os.path.join(savepath, "Z_AEC"), z_np)
-    np.save(os.path.join(savepath, "Xr_AEC"), xr_np)
+    if primary:
+        with open(os.path.join(savepath, "MSE.txt"), "w") as f:
+            f.write(f"MSE = {total_loss:.4e}")
+        np.save(os.path.join(savepath, "Loss_AEC"), total_loss)
+        np.save(os.path.join(savepath, "Z_AEC"), z_np)
+        np.save(os.path.join(savepath, "Xr_AEC"), xr_np)
     return {"z": z_np, "x_rec": xr_np, "loss": total_loss}
 
 
@@ -283,14 +325,15 @@ def _read_windows(ds, sel: np.ndarray, normalize) -> np.ndarray:
     return np.concatenate(rows, axis=0)  # sel is sorted: aligned
 
 
-def _predict_stream(config, figures: bool = False) -> Dict:
+def _predict_stream(config, figures: bool = False, mesh=None) -> Dict:
     """`loadmode = stream` inference (see the module docstring)."""
+    primary = is_primary(mesh)
     ds = _stream_dataset(config)
     m = ds.n_windows
     print(f"Dataset has {m} samples (stream).")
     savepath = config.savepath_exp
     batch = int(getattr(config, "batch_size_predict", None) or PREDICT_BATCH)
-    loader = _stream_loader_factory(config, ds, batch)()
+    loader = _stream_loader_factory(config, ds, batch, mesh)()
     model = load_aec_params(config, make_model(config))
     # one read of the wire drives both directions
     xr_wire = wire_dtype(getattr(config, "stream_transfer_dtype", None)
@@ -310,7 +353,14 @@ def _predict_stream(config, figures: bool = False) -> Dict:
         else:
             xr, z = outs
             first = torch.mean((xr - x) ** 2, dim=(1, 2, 3))
-        return first, quantize_tensor(xr, xr_wire), z
+        xr = quantize_tensor(xr, xr_wire)
+        if mesh is None:
+            return first, xr, z
+        # the ranks' blocks, whole: the reconstructions restored from the
+        # wire on the device, as the host restores them below
+        return tuple(
+            mesh.gather(t.contiguous()).reshape(-1, *t.shape[1:])
+            for t in (first, dequant_wire(xr), z))
 
     xr_path = os.path.join(savepath, "Xr_DEC.npy" if dec else "Xr_AEC.npy")
     firsts, zs = [], []
@@ -325,6 +375,8 @@ def _predict_stream(config, figures: bool = False) -> Dict:
         (first, xr, z), take = item
         firsts.append(first[:take].cpu().numpy())
         zs.append(z[:take].cpu().numpy())
+        if not primary:
+            return
         block = _to_nchw_np(dequant_wire(
             {k: v[:take].cpu() for k, v in xr.items()}
             if isinstance(xr, dict) else xr[:take].cpu()))
@@ -344,26 +396,29 @@ def _predict_stream(config, figures: bool = False) -> Dict:
     while inflight:
         materialize(inflight.popleft())
     z_np = np.concatenate(zs, axis=0)
-    xr_mm.flush()
+    if xr_mm is not None:
+        xr_mm.flush()
 
     if dec:
         q_np = np.concatenate(firsts, axis=0)
         labels_np = q_np.argmax(axis=1).astype(np.int32)
         centroids_np = model.clustering.weights.detach().cpu().numpy()
-        save_labels(labels_np, savepath)
-        np.save(os.path.join(savepath, "q_DEC"), q_np)
-        np.save(os.path.join(savepath, "Z_DEC"), z_np)
-        np.save(os.path.join(savepath, "labels_DEC"), labels_np)
-        np.save(os.path.join(savepath, "centroids_DEC"), centroids_np)
+        if primary:
+            save_labels(labels_np, savepath)
+            np.save(os.path.join(savepath, "q_DEC"), q_np)
+            np.save(os.path.join(savepath, "Z_DEC"), z_np)
+            np.save(os.path.join(savepath, "labels_DEC"), labels_np)
+            np.save(os.path.join(savepath, "centroids_DEC"), centroids_np)
         cap = int(getattr(config, "silh_max_samples", None) or 20000)
         sel = np.sort(np.random.default_rng(2009).choice(
             m, min(cap, m), replace=False))
         x_sub = _read_windows(ds, sel, _np_normalizer(config))
         metrics = _cluster.cluster_metrics(
             savepath, labels_np[sel], np.moveaxis(x_sub, -1, 1), z_np[sel],
+            save=primary,
             device=resolve_device(getattr(config, "device", None)),
         )
-        if figures:  # on the metrics subsample
+        if figures and primary:  # on the metrics subsample
             _draw_dec_figures(config, model, precision, x_sub, z_np,
                               labels_np, centroids_np, metrics, sel)
         return {
@@ -374,9 +429,11 @@ def _predict_stream(config, figures: bool = False) -> Dict:
     per = np.concatenate(firsts, axis=0)
     total_loss = float(per.astype(np.float64).mean())
     print(f"Dataset MSE = {total_loss:.4e}")
-    with open(os.path.join(savepath, "MSE.txt"), "w") as f:
-        f.write(f"MSE = {total_loss:.4e}")
-    np.save(os.path.join(savepath, "Loss_AEC"), total_loss)
-    np.save(os.path.join(savepath, "Z_AEC"), z_np)
-    # x_rec is the on-disk memmap: loading it would defeat the stream
+    if primary:
+        with open(os.path.join(savepath, "MSE.txt"), "w") as f:
+            f.write(f"MSE = {total_loss:.4e}")
+        np.save(os.path.join(savepath, "Loss_AEC"), total_loss)
+        np.save(os.path.join(savepath, "Z_AEC"), z_np)
+    # x_rec is the on-disk memmap (None off rank 0): loading it would
+    # defeat the stream
     return {"z": z_np, "x_rec": xr_mm, "loss": total_loss}

@@ -1,9 +1,10 @@
 """Workflow: hyperparameter-sweep training, AEC pretrain or DEC refine
 (counterpart of the JAX package's `workflow/train.py`; reference
-Cluster/production.py:109-181, models.py:736-1268), one device, with
-`loadmode = ram` (the windows on the device) or `stream` (`_train_stream`:
-items of a Zarr cube or a raw waveform through `data.prefetch.
-PrefetchLoader`, `stream_transfer_dtype` the wire, same artifacts):
+Cluster/production.py:109-181, models.py:736-1268), on one device or a
+mesh (`mesh=`, a `core.mesh.DataMesh`), with `loadmode = ram` (the
+windows on the device) or `stream` (`_train_stream`: items of a Zarr cube
+or a raw waveform through `data.prefetch.PrefetchLoader`,
+`stream_transfer_dtype` the wire, same artifacts):
 
 - the cartesian hp sweep with per-run dirs `Run_<hp-string>/` and `tmp/`;
 - AEC: MSE + Adam with early stopping; artifacts `AEC_history.csv`,
@@ -21,8 +22,15 @@ PrefetchLoader`, `stream_transfer_dtype` the wire, same artifacts):
 
 Checkpoints are `.pt` files of the reference state_dict
 (`train/checkpoint.py`). Not ported, each raising `NotImplementedError`:
-TensorBoard (`tb = True`, ROADMAP Queue 1 item 15), the H5 stream source
-(item 14) and a mesh (item 11).
+TensorBoard (`tb = True`, ROADMAP Queue 1 item 15) and the H5 stream
+source (item 14).
+
+Under a mesh every rank loads the same windows (a waveform through K1 on
+its own device), keeps its block of every batch (`train.layout`, or the
+loader's `sharding`), and trains the same replicated model on summed
+gradients; the stages run on the mesh's device. Only rank 0 writes
+artifacts, and every rank waits for its writes before the stage returns,
+so the tree is the single-device one, file for file.
 
 Figures (matplotlib, imported when drawn; `check_figure_packages` raises
 ImportError naming a missing package before anything is written):
@@ -55,6 +63,7 @@ from spectrogram_cube_clustering_tpu_torch.core.device import (
     fp32_policy_for,
     resolve_device,
 )
+from spectrogram_cube_clustering_tpu_torch.core.mesh import is_primary, sync
 from spectrogram_cube_clustering_tpu_torch.core.precision import (
     precision_policy,
 )
@@ -115,11 +124,8 @@ def _seeded_model(config, n_clusters: Optional[int] = None):
                       generator=torch.Generator().manual_seed(seed))
 
 
-def check_not_ported(config, mesh=None) -> None:
+def check_not_ported(config) -> None:
     """Raise NotImplementedError for an option the port does not run."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "a mesh is not ported yet: ROADMAP Queue 1 item 11 (multi-GPU)")
     if getattr(config, "tb", False):
         raise NotImplementedError(
             "tb=True is not ported: TensorBoard is ROADMAP Queue 1 item 15; "
@@ -128,6 +134,18 @@ def check_not_ported(config, mesh=None) -> None:
         raise NotImplementedError(
             "km_metrics=True is not ported yet: the cluster-count "
             "diagnostics are ROADMAP Queue 1 item 16")
+
+
+def use_mesh(config, mesh) -> None:
+    """Under a mesh, run the stage on the mesh's device: `config.device`
+    becomes it, and an ini `device` naming another raises ValueError."""
+    if mesh is None:
+        return
+    want = getattr(config, "device", None)
+    if want is not None and resolve_device(want) != mesh.device:
+        raise ValueError(
+            f"device {want} is not the mesh's device {mesh.device}")
+    config.device = mesh.device
 
 
 def check_figure_packages(config, tsne: bool = True) -> None:
@@ -151,18 +169,21 @@ def _aec_panel(config) -> bool:
     return bool(getattr(config, "figures", True))
 
 
-def _save_aec_artifacts(config, out, model, sample_x) -> str:
+def _save_aec_artifacts(config, out, model, sample_x, mesh=None) -> str:
     """AEC run artifacts: history CSV, the final params and, where
-    `_aec_panel`, the reconstruction panel of `sample_x` (n, H, W, 1)."""
+    `_aec_panel`, the reconstruction panel of `sample_x` (n, H, W, 1);
+    under a mesh, rank 0's."""
+    final_path = save(
+        os.path.join(config.savepath_run, "AEC_Params_Final.pt"),
+        out["final_params"], mesh=mesh)
+    if not is_primary(mesh):
+        return final_path
     save_history(
         {"Epoch": out["history"]["epoch"],
          "Training MSE": out["history"]["train"],
          "Validation MSE": out["history"]["validation"]},
         os.path.join(config.savepath_run, "AEC_history.csv"),
     )
-    final_path = save(
-        os.path.join(config.savepath_run, "AEC_Params_Final.pt"),
-        out["final_params"])
     if _aec_panel(config):
         from spectrogram_cube_clustering_tpu_torch.analysis import plotting
 
@@ -268,20 +289,22 @@ def _record_gmm_provenance(config, n_clusters: int, gmm_dir: str) -> None:
 
 
 def train(config, mesh=None):
-    """Run the full hp sweep. Returns a list of per-run result dicts."""
+    """Run the full hp sweep. Returns a list of per-run result dicts.
+    With a `mesh`, every rank of it calls this with the same config."""
     if config.model not in ("AEC", "DEC"):
         raise ValueError(
             f"unknown model {config.model!r} for mode='train' "
             "(GMM fitting runs via mode='fit' / workflow.gmm_fit)"
         )
-    check_not_ported(config, mesh)
+    check_not_ported(config)
     if config.model == "AEC" and _aec_panel(config):
         check_figure_packages(config, tsne=False)
     stream = getattr(config, "loadmode", None) == "stream"
     if config.model == "DEC" and not stream and _dec_snapshots(config):
         check_figure_packages(config)
+    use_mesh(config, mesh)
     if stream:
-        return _train_stream(config)
+        return _train_stream(config, mesh)
     tra_x, val_x = load_data(config)
     tra_x = _normalize(config, tra_x)
     val_x = _normalize(config, val_x)
@@ -293,23 +316,25 @@ def train(config, mesh=None):
         print(f"Hyperparameter Tuning Run {run_count}/{config.runs}: {hp}")
         config.init_output_env(**hp)
         if config.model == "AEC":
-            out = _train_aec_run(config, hp, tra_x, val_x)
+            out = _train_aec_run(config, hp, tra_x, val_x, mesh)
         else:
-            out = _train_dec_run(config, hp, tra_x)
+            out = _train_dec_run(config, hp, tra_x, mesh)
         results.append(out)
+    sync(mesh)
     return results
 
 
-def _train_aec_run(config, hp, tra_x, val_x):
+def _train_aec_run(config, hp, tra_x, val_x, mesh=None):
     batch_size, lr = int(hp["batch_size"]), float(hp["lr"])
     model = _seeded_model(config)
-    tra = _train.make_batched_data(tra_x, batch_size)
-    val = (_train.make_batched_data(val_x, batch_size)
+    tra = _train.make_batched_data(tra_x, batch_size, mesh)
+    val = (_train.make_batched_data(val_x, batch_size, mesh)
            if val_x is not None and len(val_x) else None)
-    state = _train.create_train_state(model, lr)
+    state = _train.create_train_state(model, lr, mesh)
 
     def save_checkpoint(name, params):
-        save(os.path.join(config.savepath_chkpnt, f"{name}.pt"), params)
+        save(os.path.join(config.savepath_chkpnt, f"{name}.pt"), params,
+             mesh=mesh)
 
     out = _train.train_aec(
         model, state, tra, val,
@@ -326,20 +351,23 @@ def _train_aec_run(config, hp, tra_x, val_x):
         resume=bool(getattr(config, "resume", False)),
         precision=_precision(config),
     )
-    _save_aec_artifacts(config, out, model, tra_x)
+    _save_aec_artifacts(config, out, model, tra_x, mesh)
     out["savepath_run"] = config.savepath_run
     return out
 
 
-def _save_dec_artifacts(config, out) -> None:
-    """DEC run artifacts: initial and final params, history CSVs."""
+def _save_dec_artifacts(config, out, mesh=None) -> None:
+    """DEC run artifacts: initial and final params, history CSVs; under a
+    mesh, rank 0's."""
     if out["initial_params"] is not None:
         # None exactly when resuming: the original run saved the real
         # initialization (reference models.py:1009-1012)
         save(os.path.join(config.savepath_run, "DEC_Params_Initial.pt"),
-             out["initial_params"])
+             out["initial_params"], mesh=mesh)
     save(os.path.join(config.savepath_run, "DEC_Params_Final.pt"),
-         out["state"].model.state_dict())
+         out["state"].model.state_dict(), mesh=mesh)
+    if not is_primary(mesh):
+        return
     save_history(
         {"Iteration": out["history"]["iteration"],
          "Loss": out["history"]["total"],
@@ -355,9 +383,10 @@ def _save_dec_artifacts(config, out) -> None:
         )
 
 
-def _dec_initial(config, n_clusters: int):
+def _dec_initial(config, n_clusters: int, mesh=None):
     """With `init = load`, the GMM run's (labels, centroids), its
-    provenance recorded in this run's dir; else None."""
+    provenance recorded in this run's dir (by rank 0 under a mesh); else
+    None."""
     if getattr(config, "init", "gmm") != "load":
         return None
     gmm_dir = _gmm_artifacts_dir(config, n_clusters)
@@ -365,7 +394,9 @@ def _dec_initial(config, n_clusters: int):
         np.load(os.path.join(gmm_dir, "labels.npy")),
         np.load(os.path.join(gmm_dir, "centroids.npy")),
     )
-    _record_gmm_provenance(config, n_clusters, gmm_dir)
+    if is_primary(mesh):
+        _record_gmm_provenance(config, n_clusters, gmm_dir)
+    sync(mesh)
     return initial
 
 
@@ -392,15 +423,18 @@ def _dec_snapshots(config) -> bool:
     return bool(getattr(config, "figures", False))
 
 
-def _snapshot_figures(config, tra_x: torch.Tensor):
+def _snapshot_figures(config, tra_x: torch.Tensor, mesh=None):
     """train_dec's `snapshot_cb`: `analyze_dec`'s figures of the snapshot
     (its labels, latents and centroids) against the pre-refinement one
     (`initial`; on a resumed run the snapshot against itself), saved off
-    the training thread."""
+    the training thread; under a mesh, by rank 0 (every rank gets the
+    call, which follows a full eval that they all run)."""
     from spectrogram_cube_clustering_tpu_torch.analysis import plotting
     from spectrogram_cube_clustering_tpu_torch.workflow.fit import _tsne
 
     def snapshot_cb(epoch, labels, z, centroids, initial=None):
+        if not is_primary(mesh):
+            return
         z0, labels0, cen0 = (initial if initial is not None
                              else (z, labels, centroids))
         figs = plotting.analyze_dec(
@@ -412,25 +446,25 @@ def _snapshot_figures(config, tra_x: torch.Tensor):
     return snapshot_cb
 
 
-def _train_dec_run(config, hp, tra_x):
+def _train_dec_run(config, hp, tra_x, mesh=None):
     batch_size, lr = int(hp["batch_size"]), float(hp["lr"])
     n_clusters = int(hp.get("n_clusters", getattr(config, "n_clusters", 5)))
     model = _seeded_model(config, n_clusters=n_clusters)
-    data = _train.make_batched_data(tra_x, batch_size)
+    data = _train.make_batched_data(tra_x, batch_size, mesh)
     # inherit the pretrained autoencoder (reference models.py:977-979)
     load_aec_params(config, model)
-    state = _train.create_train_state(model, lr)
+    state = _train.create_train_state(model, lr, mesh)
 
     out = _train.train_dec(
         model, state, data, _dec_config(config, hp, n_clusters),
-        initial=_dec_initial(config, n_clusters),
-        snapshot_cb=(_snapshot_figures(config, tra_x)
+        initial=_dec_initial(config, n_clusters, mesh),
+        snapshot_cb=(_snapshot_figures(config, tra_x, mesh)
                      if _dec_snapshots(config) else None),
         snapshot_path=os.path.join(config.savepath_chkpnt, "SNAPSHOT"),
         resume=bool(getattr(config, "resume", False)),
         precision=_precision(config),
     )
-    _save_dec_artifacts(config, out)
+    _save_dec_artifacts(config, out, mesh)
     out["savepath_run"] = config.savepath_run
     return out
 
@@ -486,14 +520,28 @@ def _stream_dataset(config):
     return ds
 
 
-def _stream_loader_factory(config, ds, batch_size: int):
+def _stream_sharding(config, mesh, batch_size: int):
+    """The loader's `sharding` for loadmode = stream: the mesh itself,
+    whose world must divide `batch_size`; None without a mesh."""
+    if mesh is None:
+        return None
+    if batch_size % mesh.world:
+        raise ValueError(
+            f"loadmode=stream on a {mesh.world}-device mesh needs batch_size "
+            f"divisible by {mesh.world} (got {batch_size})")
+    return mesh
+
+
+def _stream_loader_factory(config, ds, batch_size: int, mesh=None):
     """make_loader(indices=None) -> a `PrefetchLoader` over the dataset's
     normalized items on `config.device`, with the configured workers and
-    wire (`stream_transfer_dtype`)."""
+    wire (`stream_transfer_dtype`); under a mesh, each rank's block of
+    every batch."""
     from spectrogram_cube_clustering_tpu_torch.data import PrefetchLoader
 
     normalize = _np_normalizer(config)
     device = resolve_device(getattr(config, "device", None))
+    sharding = _stream_sharding(config, mesh, batch_size)
 
     def make_loader(indices=None):
         return PrefetchLoader(
@@ -503,15 +551,18 @@ def _stream_loader_factory(config, ds, batch_size: int):
             transfer_dtype=getattr(config, "stream_transfer_dtype", None)
             or None,
             device=device,
+            sharding=sharding,
+            item_windows=ds.windows_per_item,
         )
 
     return make_loader
 
 
-def _train_stream(config):
+def _train_stream(config, mesh=None):
     """`loadmode = stream`: the windows never sit in memory at once; items
     stream through the prefetch loader into one step per batch. Artifacts
-    as the ram path's."""
+    as the ram path's. Under a mesh each rank reads and sends its block
+    of every batch."""
     from spectrogram_cube_clustering_tpu_torch.data import train_val_split
 
     ds = _stream_dataset(config)
@@ -523,14 +574,14 @@ def _train_stream(config):
               f"(stream): {hp}")
         config.init_output_env(**hp)
         batch_size, lr = int(hp["batch_size"]), float(hp["lr"])
-        make_loader = _stream_loader_factory(config, ds, batch_size)
+        make_loader = _stream_loader_factory(config, ds, batch_size, mesh)
         snapshot = os.path.join(config.savepath_chkpnt, "SNAPSHOT")
         resume = bool(getattr(config, "resume", False))
         if config.model == "AEC":
             idx_tra, idx_val = train_val_split(len(ds))
             model = _seeded_model(config)
             out = _train.train_aec_stream(
-                model, _train.create_train_state(model, lr),
+                model, _train.create_train_state(model, lr, mesh),
                 lambda: make_loader(list(idx_tra)),
                 _train.AECConfig(
                     n_epochs=int(config.n_epochs),
@@ -544,20 +595,22 @@ def _train_stream(config):
                 precision=_precision(config),
             )
             _save_aec_artifacts(config, out, model,
-                                _np_normalizer(config)(ds.item(0))[:4])
+                                _np_normalizer(config)(ds.item(0))[:4], mesh)
         else:
             n_clusters = int(hp.get("n_clusters",
                                     getattr(config, "n_clusters", 5)))
             model = _seeded_model(config, n_clusters=n_clusters)
             load_aec_params(config, model)
-            initial = _dec_initial(config, n_clusters)
+            initial = _dec_initial(config, n_clusters, mesh)
             out = _train.train_dec_stream(
-                model, _train.create_train_state(model, lr), make_loader,
+                model, _train.create_train_state(model, lr, mesh),
+                make_loader,
                 ds.n_windows, _dec_config(config, hp, n_clusters),
                 initial=initial, snapshot_path=snapshot, resume=resume,
                 precision=_precision(config),
             )
-            _save_dec_artifacts(config, out)
+            _save_dec_artifacts(config, out, mesh)
         out["savepath_run"] = config.savepath_run
         results.append(out)
+    sync(mesh)
     return results

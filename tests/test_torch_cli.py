@@ -328,15 +328,28 @@ def test_not_ported_raise(tmp_path, cube, params, item):
 
 
 def test_library_not_ported_raise(tmp_path):
-    """The library stages raise for a mesh (with figures on or off; the
-    figures themselves run: tests/test_torch_figures.py)."""
+    """Under a mesh (ported: tests/test_torch_sharding.py) the library
+    stages still raise for the options the port does not run, with
+    figures on or off (the figures run: tests/test_torch_figures.py),
+    and refuse a mesh on another device than the ini's."""
     from spectrogram_cube_clustering_tpu_torch import workflow
+    from spectrogram_cube_clustering_tpu_torch.core.mesh import DataMesh
     from spectrogram_cube_clustering_tpu_torch.utils import load_config
 
+    mesh = DataMesh(rank=0, world=2, device=torch.device("cpu"))
     for figures in ("True", "False"):
-        ini = _ini(str(tmp_path), "unused", {"model": "DEC", "mode": "train",
-                                             "figures": figures})
-        cfg = load_config(ini)
-        for stage in (workflow.train, workflow.predict, workflow.gmm_fit):
-            with pytest.raises(NotImplementedError, match="item 11"):
-                stage(cfg, mesh=object())
+        for option, item in (("tb", "item 15"), ("km_metrics", "item 16")):
+            ini = _ini(str(tmp_path), "unused",
+                       {"model": "DEC", "mode": "train", "figures": figures,
+                        option: "True"})
+            cfg = load_config(ini)
+            for stage in (workflow.train, workflow.predict, workflow.gmm_fit):
+                with pytest.raises(NotImplementedError, match=item):
+                    stage(cfg, mesh=mesh)
+    ini = _ini(str(tmp_path), "unused", {"model": "DEC", "mode": "train",
+                                         "figures": "False"})
+    cfg = load_config(ini)
+    other = DataMesh(rank=0, world=2, device=torch.device("meta"))
+    for stage in (workflow.train, workflow.predict, workflow.gmm_fit):
+        with pytest.raises(ValueError, match="mesh's device"):
+            stage(cfg, mesh=other)

@@ -863,3 +863,85 @@ def test_tsne_optimiser_on_card_matches_cpu(cuda_device):
                                atol=1e-6)
     torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=1e-3,
                                atol=0)
+
+
+@pytest.fixture(params=["gloo", "nccl"])
+def card_mesh(request, cuda_device):
+    """A one-rank group on the card, over gloo with CUDA tensors (the
+    backend of several ranks on one card) or NCCL; destroyed after the
+    test."""
+    import socket
+
+    import torch.distributed as dist
+
+    from spectrogram_cube_clustering_tpu_torch import core
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    core.initialize_distributed(f"127.0.0.1:{port}", 1, 0,
+                                device=cuda_device, backend=request.param)
+    try:
+        yield core.make_data_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+def test_mesh_collectives_on_card(card_mesh):
+    """Sum, broadcast and gather keep CUDA tensors on the card."""
+    x = torch.arange(6, dtype=torch.float32, device=card_mesh.device)
+    assert card_mesh.device.type == "cuda"
+    for got in (card_mesh.sum_(x.clone()), card_mesh.broadcast_(x.clone()),
+                card_mesh.gather(x)[0]):
+        assert got.device == x.device
+        assert torch.equal(got, x)
+    card_mesh.barrier()
+
+
+def test_sharded_spectrogram_on_card_launches_k1(card_mesh):
+    """The time-sharded STFT on the card is K1 over the shard plus its
+    halo: one launch, within 1e-6 of K1 on the whole waveform."""
+    from spectrogram_cube_clustering_tpu_torch import parallel
+
+    x = _randn((3, 20_000), card_mesh.device, seed=6)
+    before = cuda_stft.LAUNCHES
+    got = parallel.sharded_spectrogram(x, card_mesh)
+    torch.cuda.synchronize()
+    assert cuda_stft.LAUNCHES == before + 1
+    want = cuda_stft.spectrogram_cuda(x)
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= 1e-6
+
+
+def test_sharded_aec_epoch_on_card_matches_one_device(card_mesh):
+    """An AEC epoch through the mesh's layout, loss and gradient sum
+    against the same epoch without a mesh on the card: losses within
+    rtol 1e-4 (two card runs' cuDNN backward may sum in other orders)."""
+    x = _tone_windows(300).to(card_mesh.device)
+    sd = _dec(2).state_dict()
+    sd = {k: v for k, v in sd.items() if k != "clustering.weights"}
+    losses = []
+    for mesh in (None, card_mesh):
+        model = models.AEC(device=card_mesh.device)
+        model.load_state_dict(sd)
+        out = train.train_aec(
+            model, train.create_train_state(model, 1e-3, mesh),
+            train.make_batched_data(x, 64, mesh), None,
+            train.AECConfig(n_epochs=2, early_stopping=False))
+        losses.append(out["history"]["train"])
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-4)
+
+
+def test_sharded_gmm_on_card_matches_dense(card_mesh):
+    """`parallel.sharded_gmm` on the card against the dense `gmm`: NMI
+    >= 0.99 on planted blobs."""
+    from spectrogram_cube_clustering_tpu_torch import parallel
+
+    rng = np.random.default_rng(0)
+    centres = rng.normal(size=(4, 9)) * 5
+    z = (centres[rng.integers(0, 4, 2_000)]
+         + rng.normal(size=(2_000, 9))).astype(np.float32)
+    got = parallel.sharded_gmm(z, 4, card_mesh, n_init=10)[0]
+    want = cluster.gmm(z, 4, n_init=10, device=card_mesh.device)[0]
+    assert got.device.type == "cuda"
+    assert cluster.nmi(want.cpu().numpy(), got.cpu().numpy()) >= 0.99

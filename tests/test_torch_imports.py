@@ -48,7 +48,9 @@ for sub in ("cli", "cli.run_dc", "cli.drivers", "cli.tools",
             "core.precision", "data.synthetic", "data.h5", "data.waveform",
             "data.prefetch", "models.packed", "models.unet",
             "models.layers", "utils.weights", "analysis.plotting",
-            "cluster.tsne", "cluster.tsne_torch", "utils.mathutils"):
+            "cluster.tsne", "cluster.tsne_torch", "utils.mathutils",
+            "core.mesh", "parallel", "parallel.cluster", "parallel.halo",
+            "train.layout", "train.state"):
     assert pkg.__name__ + "." + sub in names, sub
 import chip_smoke  # noqa: F401
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)

@@ -36,6 +36,7 @@ from spectrogram_cube_clustering_tpu import utils as jutils
 from spectrogram_cube_clustering_tpu.train import dec as jdec
 from spectrogram_cube_clustering_tpu_torch import cli, data, models, train
 from spectrogram_cube_clustering_tpu_torch import workflow
+from spectrogram_cube_clustering_tpu_torch.core.mesh import DataMesh
 from spectrogram_cube_clustering_tpu_torch.data import zarrlite
 from spectrogram_cube_clustering_tpu_torch.ops import make_normalizer
 from spectrogram_cube_clustering_tpu_torch.train import dec as tdec
@@ -214,7 +215,9 @@ def test_loader_abandoned_iteration_releases_the_reader():
 def test_loader_wire_dtypes():
     """bfloat16 batches (integer-valued items survive exactly), the int8
     {'q', 'scale'} format with per-sample scales, an unknown dtype
-    refused, and a sharded (multi-process) loader not ported."""
+    refused, and a `sharding` that is not a mesh, or whose world does not
+    divide the batch, refused (the sharded loader itself:
+    tests/test_torch_sharding.py)."""
     got = _batches(n_items=5, batch_size=4, transfer_dtype="bfloat16")
     assert all(b.dtype == torch.bfloat16 for b, _ in got)
     np.testing.assert_array_equal(
@@ -226,8 +229,11 @@ def test_loader_wire_dtypes():
     with pytest.raises(ValueError, match="transfer_dtype"):
         data.PrefetchLoader(_item_fn, 2, 4, transfer_dtype="int4",
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError, match="DataMesh"):
         data.PrefetchLoader(_item_fn, 2, 4, sharding=object(), device="cpu")
+    mesh = DataMesh(rank=0, world=3, device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="divide"):
+        data.PrefetchLoader(_item_fn, 2, 4, sharding=mesh, device="cpu")
 
 
 def test_zarr_prefetch_loader_yields_the_cube_windows(tmp_path):

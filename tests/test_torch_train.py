@@ -26,6 +26,7 @@ from spectrogram_cube_clustering_tpu.data.cube import (
 from spectrogram_cube_clustering_tpu.ops import losses as jlosses
 from spectrogram_cube_clustering_tpu_torch import data, models, train
 from spectrogram_cube_clustering_tpu_torch import workflow
+from spectrogram_cube_clustering_tpu_torch.core.mesh import DataMesh
 from spectrogram_cube_clustering_tpu_torch.ops import losses
 from spectrogram_cube_clustering_tpu_torch.utils.weights import (
     state_dict_from_jax_params,
@@ -290,18 +291,23 @@ def _not_ported_calls():
                                     fname_dataset="unused.npy", **kw)
         workflow.load_windows(cfg, split=True)
 
+    # the mesh layout is ported (tests/test_torch_sharding.py); a batch
+    # that does not divide over the mesh is refused, as by the JAX layout
+    mesh = DataMesh(rank=0, world=2, device=torch.device("cpu"))
     return {
-        "layout_mesh": (lambda: train.make_batched_data(x, 2, mesh=object()),
-                        "item 11"),
-        "h5": (lambda: windows(datafiletype="h5"), "item 14"),
+        "layout_mesh": (lambda: train.make_batched_data(x, 3, mesh=mesh),
+                        ValueError, "divide evenly"),
+        "h5": (lambda: windows(datafiletype="h5"), NotImplementedError,
+               "item 14"),
         "stream": (lambda: _stream_dataset(
             types.SimpleNamespace(datafiletype="h5", loadmode="stream",
-                                  fname_dataset="unused.h5")), "item 14"),
+                                  fname_dataset="unused.h5")),
+                   NotImplementedError, "item 14"),
     }
 
 
 @pytest.mark.parametrize("name", sorted(_not_ported_calls()))
 def test_not_ported_options_raise(name):
-    call, item = _not_ported_calls()[name]
-    with pytest.raises(NotImplementedError, match=item):
+    call, error, match = _not_ported_calls()[name]
+    with pytest.raises(error, match=match):
         call()

@@ -11,6 +11,13 @@ Queue 3); labels equal where the top-two gap of q exceeds 1e-4. JAX dots
 run at float32 precision.
 """
 
+import concurrent.futures as cf
+import os
+import socket
+import subprocess
+import sys
+import time
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -102,3 +109,57 @@ def _assert_params_close(got: dict, want_params, **tol):
     for k in got:
         np.testing.assert_allclose(got[k].numpy(), want[k].numpy(), **tol,
                                    err_msg=k)
+
+
+TESTS = os.path.dirname(os.path.abspath(__file__))
+REPO = os.path.dirname(TESTS)
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def start_ranks(module: str, world: int, out_dir: str, *args) -> list:
+    """Start `world` processes, rank r running `module._rank_main(r, world,
+    port, out_dir, *args)`, to join one gloo group on a free local port.
+    `module` is a test file of this directory that imports no jax (each
+    process imports torch and the port only), and each process
+    runs torch on one thread."""
+    code = (f"import sys; sys.path[:0] = [{TESTS!r}, {REPO!r}]; "
+            f"import {module} as m; m._rank_main(int(sys.argv[1]), {world}, "
+            f"{_free_port()}, {out_dir!r}, *{args!r})")
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    env["OMP_NUM_THREADS"] = "1"
+    return [subprocess.Popen([sys.executable, "-c", code, str(rank)],
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True, cwd=REPO, env=env)
+            for rank in range(world)]
+
+
+def wait_ranks(procs: list, timeout: float) -> None:
+    """Wait for `start_ranks`' processes, draining their pipes on threads
+    (a rank blocked on a full pipe would hold the others at their next
+    collective). The first rank to fail, or `timeout` seconds, ends the
+    wait and kills the rest, and fails the caller with the ranks'
+    stderr; no process outlives this call."""
+    deadline = time.monotonic() + timeout
+    with cf.ThreadPoolExecutor(2 * len(procs)) as pool:
+        for p in procs:
+            pool.submit(p.stdout.read)
+        errs = [pool.submit(p.stderr.read) for p in procs]
+        try:
+            while (any(p.poll() is None for p in procs)
+                   and not any(p.returncode for p in procs)
+                   and time.monotonic() < deadline):
+                time.sleep(0.05)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        errs = [f.result() for f in errs]
+    for rank, (p, err) in enumerate(zip(procs, errs)):
+        assert p.returncode == 0, (
+            f"rank {rank} ended with {p.returncode}:\n{err[-4000:]}")
