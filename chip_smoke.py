@@ -80,9 +80,11 @@ the script exits non-zero:
    through AEC train and predict (finite decreasing losses, 16-d
    latents; on a 2,048-window slice from the same seeded weights, the
    first batch's gradients and the validation loss on the card within
-   rtol 1e-5 of the CPU's, and one epoch's [train, validation] losses
-   within rtol 1e-3 / 1e-2, with the card's own run-to-run spread beside
-   them, under its default and its deterministic cuDNN algorithms); the
+   rtol 1e-5 of the CPU's; one epoch twice under cuDNN's deterministic
+   algorithms, equal, and its [train, validation] losses within rtol
+   1.5e-3 / 6.5e-3 of the CPU's; twice under the default ones, whose
+   atomics-ordered weight gradients put each run's losses elsewhere,
+   printed beside them); the
    five stages with `precision = bf16` (NMI >= 0.90; the AEC stage's
    first epoch, its training windows from its seeded weights, in bf16 on
    the card within rtol 5e-3 of the same on the CPU, and its gap to
@@ -144,6 +146,32 @@ the script exits non-zero:
    at NMI >= 0.99. Prints each stage's wall, each rank's peak device
    memory and K1 launches per rank. The kernels are built before any
    rank starts, and a rank that fails fails the phase;
+4k. mesh serving (`serve.py` on a `DataMesh`, `scc-serve-torch --mesh`;
+   K1 in every rank of the fused route): phase 4's seeded DEC(5), saved
+   as a .pt, behind `serve_http.main([... "--mesh", "--waveform"])` in
+   child processes (`serve_child`), (a) one NCCL rank and (b) two gloo
+   ranks on the one card, each group with a 10 s collective timeout,
+   each once with the two-pass waveform route (the mesh default) and
+   once with `--fuse-waveform` (each rank K1 and the model on its time
+   shard); this process is the HTTP client. /predict with 1, 5, 1,000
+   and 4,096 windows and /predict_waveform with 8,000, 400,000 and
+   (16, 2^20) samples, every answer against phase 4's single-device
+   predictor and fused frontend: z and q within rtol 1e-5 / atol 1e-7,
+   labels equal where q's top-two gap exceeds 1e-4. On the fused route
+   every rank must launch K1 on every request's chunk; on (b)'s fused
+   route one idle pause of 12 s (longer than the timeout) precedes a
+   request that must be answered; SIGINT to rank 0 must end every rank
+   with 0. Prints each server's start, the p50 of each waveform request
+   per route and world, K1 launches per rank and each rank's peak
+   device memory;
+4l. cluster-count diagnostics: the GMM stage through `cli.run_dc` with
+   `km_metrics = True` and figures off, n_clusters 3, 4, 5, 6 (100
+   k-means restarts), on a copy of 4c's waveform run's Z_AEC (41,936 x
+   9), on the card: cluster_stats.csv must hold the 4 K with the JAX
+   package's columns and finite values, its data inertias within rtol
+   1e-3 of `cluster.gap_statistic` of the same 20,000-row subsample on
+   the CPU. Prints the inertias, silhouettes and gaps, the stage's wall
+   and the CPU sweep's;
 4d. variants: the STFT precision and interior kernels
    (`csrc/stft_variants.cu`) through their entry points: K1's
    `precision="default"` (TF32), the folded STFT at HIGHEST, DEFAULT and
@@ -1141,11 +1169,17 @@ BF16_GAP_ATOL = 1e-2
 UNET_FORWARD_RTOL = 1e-5
 UNET_GRAD_RTOL = 1e-5
 #: 4h: one UNet epoch, the card's [train, validation] losses against the
-#: CPU's. Training loss: 4b's rule. The validation loss after the epoch's
-#: 24 Adam steps follows the trajectory, not the arithmetic: with the
-#: forward equal, the card's own two runs differ by 3.6e-4 and a run with
-#: deterministic cuDNN algorithms lies 5.1e-3 from the CPU (PERF.md, 4h)
-UNET_EPOCH_RTOL = (1e-3, 1e-2)
+#: CPU's, the card's run with cuDNN's deterministic algorithms. With the
+#: default ones the weight gradients come from `wgrad_alg0_engine`, which
+#: adds with atomics in an order that changes run to run; Adam turns that
+#: ~1e-7 gradient noise into steps of order lr, and the epoch lands in
+#: one of two groups (train 6.2e-5-2.4e-4 or 1.15e-3-1.20e-3 from the
+#: CPU on these windows: `tools/unet_cudnn_modes.py`, PERF.md 4h). The
+#: deterministic algorithms (`wgrad_alg1_engine`) give the same losses
+#: bit for bit in every run, 1.196e-3 / 5.1e-3 from the CPU; the bounds
+#: hold that gap with a quarter to spare. The default runs are printed,
+#: not gated
+UNET_EPOCH_RTOL = (1.5e-3, 6.5e-3)
 
 
 def aec_history(run_dir: str) -> list:
@@ -1198,10 +1232,10 @@ def unet_cpu_vs_card(device, x: torch.Tensor, card: str) -> None:
     (the forward alone), then one epoch (batch 64) on the CPU once and on
     the card twice with its default cuDNN algorithms and twice with
     deterministic ones. Gates the gradients and the forward within
-    UNET_GRAD_RTOL and UNET_FORWARD_RTOL, and the first default run's
-    [train, validation] losses within UNET_EPOCH_RTOL of the CPU's;
-    prints each run's gaps to the CPU and the card's own run-to-run
-    spread."""
+    UNET_GRAD_RTOL and UNET_FORWARD_RTOL, the two deterministic runs
+    equal, and their [train, validation] losses within UNET_EPOCH_RTOL of
+    the CPU's; prints each run's gaps to the CPU and the card's own
+    run-to-run spread."""
     from spectrogram_cube_clustering_tpu_torch import models, train
     from spectrogram_cube_clustering_tpu_torch.train.aec import eval_epoch
 
@@ -1257,8 +1291,13 @@ def unet_cpu_vs_card(device, x: torch.Tensor, card: str) -> None:
         flush=True)
     check(fwd <= UNET_FORWARD_RTOL, f"UNet cpu vs card forward gap {fwd}")
     check(grad_gap <= UNET_GRAD_RTOL, f"UNet cpu vs card gradients {grad_gap}")
-    check(all(g <= b for g, b in zip(gap("card 1", "cpu"), UNET_EPOCH_RTOL)),
-          f"UNet cpu vs card first-epoch loss gaps {gap('card 1', 'cpu')}")
+    check(hist["card det 2"] == hist["card det 1"],
+          f"UNet deterministic card runs differ: {hist['card det 1']} vs "
+          f"{hist['card det 2']}")
+    check(all(g <= b for g, b in zip(gap("card det 1", "cpu"),
+                                     UNET_EPOCH_RTOL)),
+          f"UNet cpu vs deterministic card first-epoch loss gaps "
+          f"{gap('card det 1', 'cpu')} (bounds {UNET_EPOCH_RTOL})")
 
 
 def bf16_epochs(device, x: torch.Tensor, card: str) -> dict:
@@ -2535,6 +2574,288 @@ def phase_multigpu(device, card, tmp: str, sources: dict) -> int:
     return launches
 
 
+#: 4k: each mesh server's rank processes: collective timeout (s, the
+#: shortened one the idle pause outlasts) and time limit (s)
+SERVE_GROUP_TIMEOUT = 10.0
+SERVE_TIMEOUT = 300
+#: 4k: (name, ranks, backend on a card)
+SERVE_MESHES = (("a", 1, "nccl"), ("b", 2, "gloo"))
+#: 4k: z and q of every mesh answer against phase 4's single-device
+#: predictor (the JAX package's mesh-vs-single-device tolerance)
+SERVE_MESH_TOL = dict(rtol=1e-5, atol=1e-7)
+SERVE_REPS = 5  # timed repeats of each waveform request, for the p50
+
+
+def serve_child(rank: int, world: int, port: int, backend: str, argv: list,
+                out_path: str) -> int:
+    """One rank of a 4k mesh server, in its own process: join the group
+    on the card with the shortened timeout, run `scc-serve-torch --mesh`
+    (`serve_http.main(argv)`; rank 0 serves HTTP until SIGINT, the
+    others run the worker loop until rank 0 stops them), then write this
+    rank's K1 launches and peak device memory to out_path."""
+    from spectrogram_cube_clustering_tpu_torch import core, serve_http
+    from spectrogram_cube_clustering_tpu_torch.ops import cuda_stft
+
+    core.initialize_distributed(f"127.0.0.1:{port}", world, rank,
+                                device=argv[argv.index("--device") + 1],
+                                backend=backend, timeout=SERVE_GROUP_TIMEOUT)
+    torch.cuda.reset_peak_memory_stats()
+    cuda_stft.LAUNCHES = 0  # the server's life starts here
+    rc = serve_http.main(argv)
+    with open(out_path, "w") as f:
+        json.dump({"rank": rank, "launches": cuda_stft.LAUNCHES,
+                   "peak_bytes": torch.cuda.max_memory_allocated()}, f)
+    return rc
+
+
+def start_mesh_server(world: int, backend: str, argv: list, root: str
+                      ) -> tuple:
+    """Start `world` processes of `serve_child` on a free local port and
+    wait for rank 0's address. Returns (processes, logs, outs, url); a
+    rank that ends first, or SERVE_TIMEOUT, kills them all and fails."""
+    import re
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo", NCCL_SOCKET_IFNAME="lo")
+    procs, logs, outs = [], [], []
+    for rank in range(world):
+        outs.append(f"{root}.rank{rank}.json")
+        logs.append(f"{root}.rank{rank}.log")
+        code = (f"import sys; sys.path.insert(0, {here!r}); "
+                f"import chip_smoke; sys.exit(chip_smoke.serve_child("
+                f"{rank}, {world}, {port}, {backend!r}, {argv!r}, "
+                f"{outs[-1]!r}))")
+        with open(logs[-1], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-u", "-c", code], stdout=log,
+                stderr=subprocess.STDOUT, cwd=here, env=env))
+    deadline = time.monotonic() + SERVE_TIMEOUT
+    while time.monotonic() < deadline:
+        with open(logs[0]) as f:
+            m = re.search(r"on (http://[\d.]+:\d+)", f.read())
+        if m:
+            return procs, logs, outs, m.group(1)
+        if any(p.poll() is not None for p in procs):
+            break
+        time.sleep(0.2)
+    stop_mesh_server(procs, logs, kill=True)
+    raise RuntimeError(f"check failed: 4k mesh server {root} did not start")
+
+
+def stop_mesh_server(procs: list, logs: list, kill: bool = False) -> list:
+    """SIGINT to rank 0 (its server_close stops the other ranks), then
+    wait for every rank; kill what is left after SERVE_TIMEOUT. Prints a
+    failed rank's log tail; returns the exit codes."""
+    import signal
+
+    if not kill and procs[0].poll() is None:
+        procs[0].send_signal(signal.SIGINT)
+    deadline = time.monotonic() + (0 if kill else SERVE_TIMEOUT)
+    while (any(p.poll() is None for p in procs)
+           and time.monotonic() < deadline):
+        time.sleep(0.1)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    for rank, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            with open(log) as f:
+                tail = f.read()[-6000:]
+            print(f"4k rank {rank} ended with {p.returncode}:\n{tail}",
+                  file=sys.stderr, flush=True)
+    return [p.returncode for p in procs]
+
+
+def check_mesh_answer(name: str, got: dict, want: dict) -> None:
+    """A mesh answer against the single-device one: z and q within
+    SERVE_MESH_TOL, labels equal where q's top-two gap exceeds 1e-4,
+    windows_per_channel equal."""
+    ok = all(np.allclose(got[k], want[k], **SERVE_MESH_TOL)
+             for k in ("q", "z"))
+    top2 = np.sort(want["q"], axis=1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > LABEL_GAP
+    agree = bool((got["labels"][clear] == want["labels"][clear]).all())
+    err = {k: float(np.abs(got[k] - want[k]).max()) if len(want[k]) else 0.0
+           for k in ("q", "z")}
+    check(ok and agree and got["q"].shape == want["q"].shape,
+          f"4k {name}: q/z max_abs_err {err}, labels equal where clear "
+          f"{agree}")
+    if "windows_per_channel" in want:
+        check(got["windows_per_channel"].tolist()
+              == want["windows_per_channel"].tolist(),
+              f"4k {name} windows_per_channel")
+
+
+def phase_serve_mesh(device, card: str, sd: dict, predictor, frontend,
+                     windows_np: np.ndarray, waves_np: dict, tmp: str) -> int:
+    """4k: phase 4's seeded DEC(5) as a .pt behind `scc-serve-torch
+    --mesh --waveform` in child processes, (a) one NCCL rank and (b) two
+    gloo ranks on the one card, each with the two-pass and the fused
+    waveform route; this process is the HTTP client. Every answer is held
+    to phase 4's single-device predictor and frontend; on (b)'s fused
+    route one idle pause outlasts the group's timeout. Returns K1's
+    launches on the requests (each rank's count less its warm-up's
+    one)."""
+    ckpt = f"{tmp}/serve_mesh_dec.pt"
+    torch.save(sd, ckpt)
+    window_reqs = {f"windows_{n}": windows_np[:n] for n in (1, 5, 1000, 4096)}
+    want = {name: predictor(arr) for name, arr in window_reqs.items()}
+    want.update({name: frontend(arr) for name, arr in waves_np.items()})
+    launches = 0
+    for name, world, backend in SERVE_MESHES:
+        if device.type != "cuda":
+            backend = "gloo"  # a rehearsal on the CPU
+        for route in ("two-pass", "fused"):
+            root = f"{tmp}/serve_mesh_{name}_{route}"
+            argv = [ckpt, "--mesh", "--n-clusters", "5", "--max-batch",
+                    "1024", "--host", "127.0.0.1", "--port", "0",
+                    "--waveform", "--device", str(device)]
+            if route == "fused":
+                argv.append("--fuse-waveform")
+            t0 = time.perf_counter()
+            procs, logs, outs, url = start_mesh_server(world, backend, argv,
+                                                       root)
+            start_s = time.perf_counter() - t0
+            p50, idle = {}, None
+            try:
+                with urllib.request.urlopen(f"{url}/healthz",
+                                            timeout=60) as resp:
+                    meta = json.loads(resp.read())
+                check(meta.get("mesh") == world
+                      and meta["waveform"]["fused"] == (route == "fused"),
+                      f"4k({name}) {route} healthz {meta}")
+                for req, arr in window_reqs.items():
+                    status, got, _ = post(f"{url}/predict", arr)
+                    check(status == 200, f"4k {req} status {status}")
+                    check_mesh_answer(f"({name}) {route} {req}", got,
+                                      want[req])
+                for req, arr in waves_np.items():
+                    times = []
+                    for _ in range(1 + SERVE_REPS):
+                        status, got, secs = post(f"{url}/predict_waveform",
+                                                 arr)
+                        check(status == 200, f"4k {req} status {status}")
+                        times.append(secs)
+                    check_mesh_answer(f"({name}) {route} {req}", got,
+                                      want[req])
+                    p50[req] = float(np.median(times[1:])) * 1e3
+                if name == "b" and route == "fused":
+                    time.sleep(1.2 * SERVE_GROUP_TIMEOUT)
+                    status, got, _ = post(f"{url}/predict",
+                                          window_reqs["windows_5"])
+                    check(status == 200, f"4k after the idle pause {status}")
+                    check_mesh_answer(f"({name}) {route} after an idle "
+                                      f"{1.2 * SERVE_GROUP_TIMEOUT:.0f} s",
+                                      got, want["windows_5"])
+                    idle = 1.2 * SERVE_GROUP_TIMEOUT
+            finally:
+                codes = stop_mesh_server(procs, logs)
+            check(codes == [0] * world,
+                  f"4k({name}) {route} ranks ended with {codes}")
+            ranks = []
+            for path in outs:
+                with open(path) as f:
+                    ranks.append(json.load(f))
+            # the fused route's warm-up launches K1 once on every rank,
+            # the two-pass route's once on rank 0
+            fused_chunks = (1 + SERVE_REPS) * len(waves_np)
+            for r in ranks:
+                warm = 1 if (route == "fused" or r["rank"] == 0) else 0
+                served = r["launches"] - warm
+                if route == "fused":
+                    check(served >= fused_chunks,
+                          f"4k({name}) fused rank {r['rank']} K1 launches "
+                          f"{served} < {fused_chunks}")
+                launches += served
+            print(f"mesh serving 4k({name}) on {card}: {world} rank(s) over "
+                  f"{backend}, {route} route; server start "
+                  f"{start_s:.3f} s (processes, warm-up); p50 "
+                  + "; ".join(f"{k} {v:.2f} ms" for k, v in p50.items())
+                  + f"; K1 launches per rank on the requests "
+                  f"{[r['launches'] - (1 if route == 'fused' or r['rank'] == 0 else 0) for r in ranks]}"
+                  f"; peak device memory per rank "
+                  f"{[r['peak_bytes'] for r in ranks]} bytes"
+                  + (f"; answered after an idle {idle:.0f} s > the group's "
+                     f"{SERVE_GROUP_TIMEOUT:.0f} s timeout" if idle else ""),
+                  flush=True)
+    return launches
+
+
+#: 4l: the swept K of the cluster-count diagnostics
+KM_METRICS_K = "3, 4, 5, 6"
+KM_METRICS_COLUMNS = ["n_clusters", "inertia", "silhouette", "gap_gaussian",
+                      "gap_uniform"]
+#: 4l: the card's data inertias against the port's same sweep on the CPU:
+#: the latents are well clustered, so both find the same minimum at every K
+KM_METRICS_RTOL = 1e-3
+
+
+def phase_km_metrics(device, card: str, tmp: str) -> None:
+    """4l: the GMM stage with km_metrics = True (figures off) over K = 3-6
+    on 4c's waveform run's Z_AEC (41,936 x 9), on the card through
+    `cli.run_dc`: cluster_stats.csv must hold the 4 K with the JAX
+    columns and finite values, its data inertias within KM_METRICS_RTOL
+    of `cluster.gap_statistic` of the same subsample on the CPU. Prints
+    the gaps, the silhouettes and the seconds of the stage and the CPU
+    sweep."""
+    import shutil
+
+    from spectrogram_cube_clustering_tpu_torch import cli, cluster
+    from spectrogram_cube_clustering_tpu_torch.utils import config_training
+
+    [aec_run] = _dirs_holding(f"{tmp}/B", "AEC_history.csv")
+    run = f"{tmp}/km/{os.path.basename(aec_run)}"
+    os.makedirs(f"{run}/Prediction")
+    for rel in ("AEC_Params_Final.pt", "Prediction/Z_AEC.npy"):
+        shutil.copy(os.path.join(aec_run, rel), os.path.join(run, rel))
+    ini = config_training(
+        {"savepath": f"{tmp}/km/Outputs", "configpath": f"{tmp}/km/Config",
+         "transform": "sample_norm_cent",
+         "fname_dataset": f"{tmp}/wave.npy", "datafiletype": "waveform"},
+        {"tb": "False", "show": "False", "figures": "False",
+         "model": "GMM", "mode": "fit",
+         "saved_weights": f"{run}/AEC_Params_Final.pt",
+         "km_n_init": 100, "km_max_iter": 1000, "km_metrics": "True"},
+        {"n_clusters": KM_METRICS_K})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cfg = cli.run_dc(init_path=ini)
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t0
+    check(cfg.device.type == device.type, f"4l ran on {cfg.device}")
+    with open(os.path.join(cfg.savepath_exp, "cluster_stats.csv")) as f:
+        rows = list(csv.reader(f))
+    table = np.asarray(rows[1:], dtype=np.float64)
+    k_list = [int(k) for k in KM_METRICS_K.split(",")]
+    check(rows[0] == KM_METRICS_COLUMNS and table.shape == (4, 5)
+          and table[:, 0].tolist() == k_list and np.isfinite(table).all(),
+          f"4l cluster_stats.csv {rows}")
+    z = np.load(f"{run}/Prediction/Z_AEC.npy")
+    # the diagnostics' subsample: silh_max_samples (20,000) rows drawn with
+    # the config's seed (2009), both defaults
+    sel = (np.sort(np.random.default_rng(2009).choice(len(z), 20000,
+                                                      replace=False))
+           if len(z) > 20000 else np.arange(len(z)))
+    t0 = time.perf_counter()
+    cpu = cluster.gap_statistic(z[sel], k_list, seed=2009, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    rel = np.abs(table[:, 1] - cpu["inertia"]) / cpu["inertia"]
+    print(f"km_metrics 4l on {card}: GMM stage over K {k_list} on "
+          f"{len(z)} x {z.shape[1]} latents (diagnostics on {len(sel)}) in "
+          f"{stage_s:.3f} s; inertia {table[:, 1].tolist()}; silhouette "
+          f"{table[:, 2].tolist()}; gap gaussian {table[:, 3].tolist()}; gap "
+          f"uniform {table[:, 4].tolist()}; the CPU's gap_statistic sweep "
+          f"{cpu_s:.3f} s, inertia {cpu['inertia'].tolist()}, relative gap "
+          f"{rel.max():.3e} (bound {KM_METRICS_RTOL})", flush=True)
+    check(rel.max() <= KM_METRICS_RTOL,
+          f"4l card vs CPU inertias {table[:, 1]} vs {cpu['inertia']}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2545,6 +2866,7 @@ def main() -> int:
                     help="write 4h's bf16 epoch windows and seeded AEC "
                     "weights for tools/bf16_reference_gap.py")
     args = ap.parse_args()
+    script_t0 = time.perf_counter()
 
     # 1. device
     if not torch.cuda.is_available():
@@ -2704,10 +3026,17 @@ def main() -> int:
         # 4j. the mesh: 4c's waveform stages over one NCCL rank and over
         # two gloo ranks on the card; the sharded STFT and GMM
         mesh_launches = phase_multigpu(device, card, tmp, sources)
+        # 4k. mesh serving: phase 4's DEC behind scc-serve-torch --mesh
+        serve_mesh_launches = phase_serve_mesh(
+            device, card, model.state_dict(), predictor, frontend, windows_np,
+            waves_np, tmp)
+        # 4l. the cluster-count diagnostics on 4c's latents
+        phase_km_metrics(device, card, tmp)
     max_err = max(max_err, cube_err)
     print(f"STFT kernel launches: serving path {launches}, training path "
           f"{train_launches}, workflow {wf_launches}, architectures "
-          f"{arch_launches}, multi-GPU ranks {mesh_launches}", flush=True)
+          f"{arch_launches}, multi-GPU ranks {mesh_launches}, mesh "
+          f"serving ranks {serve_mesh_launches}", flush=True)
     check(train_launches >= 1, "STFT kernel on the training path")
     # 4d. the STFT precision and interior variants
     variant_entries = phase_variants(device, gen, card, cuda_stft,
@@ -2763,6 +3092,9 @@ def main() -> int:
           f"FLOP/s), kernel at {floor_ms / kernel_ms:.1%} of it", flush=True)
     for name, ms in latency.items():
         print(f"p50 latency {name} on {card}: {ms:.2f} ms", flush=True)
+    print(f"chip_smoke wall on {card}: "
+          f"{time.perf_counter() - script_t0:.1f} s (the kernels' build "
+          "included)", flush=True)
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{
@@ -2771,7 +3103,7 @@ def main() -> int:
         "source": "spectrogram_cube_clustering_tpu_torch/csrc/stft.cu",
         "replaces": "spectrogram_cube_clustering_tpu/ops/pallas_stft.py:86",
         "launches": (launches + train_launches + wf_launches + arch_launches
-                     + mesh_launches),
+                     + mesh_launches + serve_mesh_launches),
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,

@@ -16,8 +16,10 @@ Agg backend (unless one is set) and raises ImportError naming matplotlib
 where it is not installed. The card's machine has no matplotlib, so the
 port imports this module there and draws nothing.
 
-Not copied: `view_cluster_stats` (the cluster-count diagnostics, ROADMAP
-Queue 1 item 16), `view_detections` and `view_series` (h5py and the
+Also `view_cluster_stats`, the figure of the cluster-count diagnostics
+(`km_metrics = True`, `workflow.fit`).
+
+Not copied: `view_detections` and `view_series` (h5py and the
 catalogues, items 14 and 20), and the figures no workflow stage draws.
 """
 
@@ -576,6 +578,55 @@ def cluster_gallery(
         cbar.ax.tick_params(labelsize=8)
     fig.suptitle("Classes", size=16, weight="bold")
     fig.subplots_adjust(top=0.92)
+    return _finish(fig, show)
+
+
+def view_cluster_stats(
+    k_list, inertia, silh, gap_g=None, gap_u=None, show: bool = False
+):
+    """Cluster-count diagnostics (reference view_cluster_stats,
+    plotting.py:1170-1221): inertia, mean silhouette, and gap statistics
+    against gaussian/uniform null references on a triple y-axis."""
+    plt = _plt()
+    fig, host = plt.subplots(figsize=(6, 4), dpi=150)
+    par1 = host.twinx()
+    lines = []
+    p1, = host.plot(k_list, inertia, color="navy", marker=".", label="Inertia")
+    p2, = par1.plot(k_list, silh, color="darkgreen", marker=".",
+                    label="Silhouette")
+    lines += [p1, p2]
+    host.set_xlabel("Number of Clusters")
+    host.set_ylabel("Inertia")
+    par1.set_ylabel("Silhouette Score")
+    host.yaxis.label.set_color(p1.get_color())
+    par1.yaxis.label.set_color(p2.get_color())
+    if gap_g is not None or gap_u is not None:
+        par2 = host.twinx()
+        par2.spines["right"].set_position(("axes", 1.25))
+        par2.set_frame_on(True)
+        par2.patch.set_visible(False)
+        for sp in par2.spines.values():
+            sp.set_visible(False)
+        par2.spines["right"].set_visible(True)
+        if gap_g is not None:
+            p3, = par2.plot(k_list, gap_g, "firebrick", ls=":", marker=".",
+                            label="Gaussian")
+            lines.append(p3)
+        if gap_u is not None:
+            p4, = par2.plot(k_list, gap_u, "firebrick", ls="-.", marker=".",
+                            label="Uniform")
+            lines.append(p4)
+        par2.set_ylabel("Gap Statistic")
+        par2.yaxis.label.set_color("firebrick")
+    host.xaxis.grid()
+    host.set_xticks(list(k_list))
+    leg_cols = min(len(lines), 4)
+    host.legend(
+        lines, [ln.get_label() for ln in lines], ncol=leg_cols,
+        bbox_to_anchor=(0.6, -0.28), loc="lower center",
+    )
+    fig.tight_layout()
+    fig.subplots_adjust(right=0.72, bottom=0.25)
     return _finish(fig, show)
 
 

@@ -16,6 +16,7 @@ from spectrogram_cube_clustering_tpu_torch.cluster.kmeans import (  # noqa: F401
 )
 from spectrogram_cube_clustering_tpu_torch.cluster.metrics import (  # noqa: F401
     cluster_metrics,
+    gap_statistic,
     nmi,
     silhouette_samples_X,
 )
@@ -29,7 +30,7 @@ from spectrogram_cube_clustering_tpu_torch.cluster.tsne_torch import (  # noqa: 
 )
 
 __all__ = [
-    "GMMState", "cluster_metrics", "gmm", "gmm_em", "gmm_predict", "kmeans",
+    "GMMState", "cluster_metrics", "gap_statistic", "gmm", "gmm_em", "gmm_predict", "kmeans",
     "lloyd", "nmi", "silhouette_samples", "silhouette_samples_X", "tsne",
     "tsne_torch", "tsne_torch_landmark",
 ]

@@ -10,8 +10,14 @@ difference form (`ops.student_t.pairwise_sqdist`), empty clusters keep
 their centre, and tol_abs = tol * mean(population variance of each
 feature), as sklearn does.
 
-Seeding draws from a `torch.Generator` on the data's device, not from
-JAX's PRNG: the seeds differ, so parity with the JAX function is
+Seeding draws its uniforms from a CPU `torch.Generator`, whatever the
+data's device (a chunk's first rows and (K - 1, R) uniforms, copied to
+the device at once), and picks each candidate on the data's device by
+inverse CDF over float64 cumulative weights: one seed draws
+the same k-means++ centres on the CPU and on a card (a generator on the
+card draws another stream, and with few restarts the two land in
+different local minima), and the (R, M) weights never leave the device.
+Those draws are not JAX's PRNG's: parity with the JAX function is
 statistical (NMI), while Lloyd from given centres (`lloyd`) matches it
 exactly.
 """
@@ -55,18 +61,24 @@ def plus_plus_init(
     z: torch.Tensor, k: int, n_restarts: int, generator: torch.Generator
 ) -> torch.Tensor:
     """k-means++ seeding (one candidate per step) for `n_restarts`
-    restarts at once: (R, K, D) initial centres."""
+    restarts at once: (R, K, D) initial centres. The uniforms come from
+    `generator` on its own device (the CPU's in `kmeans`) and cross to
+    z's, where each step picks its candidates by inverse CDF."""
     m = z.shape[0]
     tiny = torch.finfo(z.dtype).tiny
     first = torch.randint(0, m, (n_restarts,), generator=generator,
-                          device=z.device)
+                          device=generator.device).to(z.device)
+    uniforms = torch.rand((k - 1, n_restarts), generator=generator,
+                          dtype=torch.float64,
+                          device=generator.device).to(z.device)
     centers = z.new_zeros((n_restarts, k, z.shape[1]))
     centers[:, 0] = z[first]
     d2 = torch.sum((z[None] - z[first][:, None]) ** 2, dim=-1)  # (R, M)
     for i in range(1, k):
-        idx = torch.multinomial(torch.clamp(d2, min=tiny), 1,
-                                generator=generator)[:, 0]
-        c = z[idx]
+        cdf = torch.cumsum(torch.clamp(d2, min=tiny).to(torch.float64), 1)
+        target = uniforms[i - 1] * cdf[:, -1]
+        idx = torch.searchsorted(cdf, target[:, None], right=True)
+        c = z[torch.clamp(idx[:, 0], max=m - 1)]
         centers[:, i] = c
         d2 = torch.minimum(d2, torch.sum((z[None] - c[:, None]) ** 2, dim=-1))
     return centers
@@ -128,7 +140,7 @@ def kmeans(
     `restart_chunk` at a time, each chunk as one batched computation."""
     z = as_latents(z_array, device)
     tol_abs = tol * torch.mean(torch.var(z, dim=0, correction=0))
-    gen = torch.Generator(device=z.device).manual_seed(int(seed))
+    gen = torch.Generator().manual_seed(int(seed))  # the same on any device
     best_centers, best_inertia = None, None
     for start in range(0, n_init, restart_chunk):
         r = min(restart_chunk, n_init - start)

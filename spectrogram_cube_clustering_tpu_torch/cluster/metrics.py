@@ -9,8 +9,10 @@ data (X, decimated by RF) space; written as 7 `.npy` files and
 (`cluster.silhouette`); the per-class moments are numpy, as in the JAX
 package. The JAX package's pandas table becomes a dict of columns and a
 CSV written with the stdlib `csv` module, which parses to the same table.
-The cluster-count diagnostics (`gap_statistic`, `km_metrics`) are ROADMAP
-Queue 1 item 16.
+
+`gap_statistic` (the cluster-count diagnostics of `km_metrics = True`)
+draws its null references with the JAX package's numpy calls in the same
+order and fits them with the port's k-means on the device.
 """
 
 from __future__ import annotations
@@ -86,17 +88,87 @@ def _nanmean_or_nan(v: np.ndarray) -> float:
     return float(np.nanmean(v)) if np.isfinite(v).any() else float("nan")
 
 
-def _write_table(table: Dict[str, list], path: str) -> None:
-    """The table as pandas' `to_csv` writes it: an unnamed index column,
-    every number as a float, NaN and None as empty cells."""
+def _write_table(table: Dict[str, list], path: str,
+                 columns=_COLUMNS) -> None:
+    """The table as pandas' `to_csv` writes it: with `table["index"]`
+    an unnamed index column first (none without, as `index=False`);
+    Python ints as ints, every other number as a float, NaN and None as
+    empty cells."""
     def cell(v):
-        return "" if v is None or np.isnan(v) else repr(float(v))
+        if v is None:
+            return ""
+        if isinstance(v, int):
+            return str(v)
+        return "" if np.isnan(v) else repr(float(v))
 
+    index = table.get("index")
     with open(path, "w", newline="") as f:
         w = csv.writer(f, lineterminator="\n")
-        w.writerow(["", *_COLUMNS])
-        for i, name in enumerate(table["index"]):
-            w.writerow([name, *(cell(table[c][i]) for c in _COLUMNS)])
+        w.writerow(list(columns) if index is None else ["", *columns])
+        for i in range(len(table[columns[0]])):
+            row = [cell(table[c][i]) for c in columns]
+            w.writerow(row if index is None else [index[i], *row])
+
+
+def gap_statistic(
+    z,
+    k_list,
+    n_refs: int = 5,
+    seed: int = 2009,
+    n_init: int = 4,
+    max_iter: int = 100,
+    *,
+    device=None,
+) -> Dict[str, np.ndarray]:
+    """Tibshirani gap statistic over a K sweep against a Gaussian and a
+    uniform null reference (the JAX package's `gap_statistic`; reference
+    view_cluster_stats, plotting.py:1170-1221, plots both series).
+
+    Gap(K) = E[log W_K(null)] - log W_K(data), W_K the inertia of the
+    winning k-means restart (`cluster.kmeans(..., return_inertia=True)`
+    on `device`). The null draws are the JAX function's: one
+    `np.random.default_rng(seed)`, per K `n_refs` Gaussian draws (the
+    data's mean and std per feature), then `n_refs` uniform ones (its
+    range). k-means++ seeds from torch's generator, not JAX's, so the
+    inertias of a fit with several local minima may differ from JAX's.
+    `k_list` may be any iterable. Returns {"inertia", "gap_g", "gap_u"},
+    float64 arrays aligned with k_list."""
+    from spectrogram_cube_clustering_tpu_torch.cluster.kmeans import kmeans
+
+    if hasattr(z, "cpu"):
+        z = z.cpu().numpy()
+    z = np.asarray(z, np.float32)
+    rng = np.random.default_rng(seed)
+    lo, hi = z.min(axis=0), z.max(axis=0)
+    mu, sd = z.mean(axis=0), z.std(axis=0) + 1e-12
+
+    def _inertia(data, k):
+        inertia = kmeans(data, int(k), n_init=n_init, max_iter=max_iter,
+                         seed=seed, return_inertia=True, device=device)[2]
+        return float(inertia)
+
+    k_list = list(k_list)  # an iterator is read once
+    inertia = np.empty(len(k_list))
+    gap_g = np.empty_like(inertia)
+    gap_u = np.empty_like(inertia)
+    for i, k in enumerate(k_list):
+        inertia[i] = _inertia(z, k)
+        log_w = np.log(max(inertia[i], 1e-30))
+        refs_g = [
+            np.log(max(_inertia(
+                (rng.standard_normal(z.shape) * sd + mu).astype(np.float32), k
+            ), 1e-30))
+            for _ in range(n_refs)
+        ]
+        refs_u = [
+            np.log(max(_inertia(
+                rng.uniform(lo, hi, z.shape).astype(np.float32), k
+            ), 1e-30))
+            for _ in range(n_refs)
+        ]
+        gap_g[i] = np.mean(refs_g) - log_w
+        gap_u[i] = np.mean(refs_u) - log_w
+    return {"inertia": inertia, "gap_g": gap_g, "gap_u": gap_u}
 
 
 def cluster_metrics(

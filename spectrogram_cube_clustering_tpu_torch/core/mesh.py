@@ -21,6 +21,17 @@ tensors and gloo on CUDA tensors (which has no all-gather and no
 send/recv) take them through one code path; tensors stay on the mesh's
 device.
 
+Serving over a mesh (`serve.py`) adds a request channel from rank 0 to
+the other ranks (`RequestChannel`): a fixed-size `Header` (op, kind, wire
+dtype code, shape) broadcast before each request's payload, every call
+under one lock on rank 0, so the ranks issue their collectives in one
+order whichever thread of rank 0 serves. A worker rank waits for the
+next header inside a broadcast, which the process group's timeout
+(`initialize_distributed(timeout=)`, torch's default otherwise) would
+end while the server is idle: rank 0 therefore sends a heartbeat header
+whenever a quarter of that timeout passes without a call, and a stop
+header when it closes.
+
 Launch under torchrun, one process per GPU:
 
     torchrun --nproc_per_node=4 my_script.py   # calls initialize_distributed()
@@ -28,18 +39,23 @@ Launch under torchrun, one process per GPU:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import datetime
 import os
-from typing import Optional, Tuple, Union
+import threading
+import time
+from typing import Callable, Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
 
 from spectrogram_cube_clustering_tpu_torch.core.device import resolve_device
 
-#: the device `initialize_distributed` gave this process's rank; it lives
-#: as long as the process group, which is itself process-wide
-_GROUP_DEVICE = {}
+#: the device `initialize_distributed` gave this process's rank and the
+#: group's timeout (s); they live as long as the process group, which is
+#: itself process-wide
+_GROUP = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,6 +115,7 @@ def initialize_distributed(
     process_id: Optional[int] = None,
     device: Union[str, torch.device, None] = None,
     backend: Optional[str] = None,
+    timeout: Optional[float] = None,
 ) -> torch.device:
     """Join this process to the group (`torch.distributed.
     init_process_group`) and return its rank's device. Idempotent.
@@ -108,9 +125,11 @@ def initialize_distributed(
     `num_processes` and `process_id` name them instead. `device` defaults
     to the card `cuda:LOCAL_RANK` (made current), and `backend` follows
     it: NCCL for a card, gloo for the CPU, unless named (gloo on CUDA
-    tensors is what runs several ranks on one card)."""
+    tensors is what runs several ranks on one card). `timeout` (seconds)
+    bounds each collective's wait, torch's default for the backend
+    otherwise (`group_timeout`)."""
     if dist.is_initialized():
-        return _GROUP_DEVICE.get("device") or make_data_mesh().device
+        return _GROUP.get("device") or make_data_mesh().device
     if device is None:
         device = f"cuda:{_env_int('LOCAL_RANK', 0)}"
     device = resolve_device(device)
@@ -124,11 +143,29 @@ def initialize_distributed(
     if coordinator_address is None:
         coordinator_address = (f"{os.environ.get('MASTER_ADDR', 'localhost')}"
                                f":{os.environ.get('MASTER_PORT', '29500')}")
+    kw = {} if timeout is None else {
+        "timeout": datetime.timedelta(seconds=float(timeout))}
     dist.init_process_group(
         backend, init_method=f"tcp://{coordinator_address}", rank=rank,
-        world_size=world)
-    _GROUP_DEVICE["device"] = device
+        world_size=world, **kw)
+    _GROUP["device"] = device
+    if timeout is not None:
+        _GROUP["timeout"] = float(timeout)
     return device
+
+
+def group_timeout() -> float:
+    """Seconds a collective of the default group may wait: what
+    `initialize_distributed(timeout=)` set, else torch's default for the
+    group's backend (NCCL's or the general one)."""
+    from torch.distributed import constants
+
+    if "timeout" in _GROUP:
+        return _GROUP["timeout"]
+    nccl = dist.is_initialized() and dist.get_backend() == "nccl"
+    default = (getattr(constants, "default_pg_nccl_timeout", None) if nccl
+               else None) or constants.default_pg_timeout
+    return default.total_seconds()
 
 
 def make_data_mesh(device: Union[str, torch.device, None] = None) -> DataMesh:
@@ -141,7 +178,7 @@ def make_data_mesh(device: Union[str, torch.device, None] = None) -> DataMesh:
             "make_data_mesh needs a torch.distributed process group: call "
             "core.initialize_distributed() first (or launch under torchrun)")
     if device is None:
-        device = (_GROUP_DEVICE.get("device")
+        device = (_GROUP.get("device")
                   or f"cuda:{_env_int('LOCAL_RANK', 0)}")
     return DataMesh(rank=dist.get_rank(), world=dist.get_world_size(),
                     device=resolve_device(device))
@@ -190,3 +227,146 @@ def sync(mesh: Optional[DataMesh]) -> None:
     writes, before anything reads them); nothing without one."""
     if mesh is not None:
         mesh.barrier()
+
+
+#: the header's shape field: at most this many dims
+HEADER_DIMS = 6
+
+
+@dataclasses.dataclass(frozen=True)
+class Header:
+    """What rank 0 broadcasts before each request on a serving mesh:
+    `op` (what to run; `RequestChannel.BEAT` and `STOP` are the channel's
+    own), `kind` (the model the request is for), `wire` (the payload's
+    wire dtype, a code of the caller's) and the payload's `shape`."""
+
+    op: int
+    kind: int = 0
+    wire: int = 0
+    shape: Tuple[int, ...] = ()
+
+    def tensor(self, device) -> torch.Tensor:
+        """The header as a fixed-size int64 tensor: op, kind, wire, ndim,
+        then the shape padded with zeros."""
+        if len(self.shape) > HEADER_DIMS:
+            raise ValueError(
+                f"a header holds at most {HEADER_DIMS} dims, got {self.shape}")
+        shape = list(self.shape) + [0] * (HEADER_DIMS - len(self.shape))
+        return torch.tensor(
+            [self.op, self.kind, self.wire, len(self.shape), *shape],
+            dtype=torch.int64, device=device)
+
+    @classmethod
+    def from_tensor(cls, t: torch.Tensor) -> "Header":
+        op, kind, wire, ndim, *shape = t.tolist()
+        return cls(op, kind, wire, tuple(shape[:ndim]))
+
+
+class RequestChannel:
+    """Rank 0's requests to the other ranks of a serving mesh.
+
+    Rank 0 runs each request as `with channel.call(header): ...`: under
+    the channel's lock it broadcasts the header, then the body issues the
+    request's collectives (the payload, each rank's part, the gather).
+    The other ranks loop on `recv()`, which returns the next request's
+    header and skips heartbeats, and end on the `STOP` header `close()`
+    sends. A call that raises marks the channel failed: later calls
+    raise, `close()` sends nothing, and `on_failure` (if set) is called
+    once with the error, so a server can stop and exit non-zero.
+
+    On rank 0 of a group of more than one rank, the heartbeat thread
+    starts with the channel and sends a `BEAT` header whenever a quarter
+    of the group's timeout (`beat_s`) passes without a call, so a worker
+    never waits in one broadcast for longer than half the timeout, before
+    the first request as between two (a beat sent before the workers
+    reach `recv` waits for them). From the channel's construction to its
+    `close()` the group carries its traffic alone: rank 0 issues no other
+    collective, and holds one open channel at a time. A `DataMesh` with
+    no process group behind it starts no heartbeat."""
+
+    BEAT, STOP = 0, 1
+
+    def __init__(self, mesh: DataMesh):
+        self.mesh = mesh
+        self.beat_s = group_timeout() / 4
+        self.error: Optional[BaseException] = None
+        self.on_failure: Optional[Callable[[BaseException], None]] = None
+        self._lock = threading.Lock()
+        self._closed = threading.Event()
+        self._last = time.monotonic()
+        self._beats: Optional[threading.Thread] = None
+        if mesh.rank == 0 and mesh.world > 1 and dist.is_initialized():
+            self._beats = threading.Thread(
+                target=self._beat, name="scc-mesh-heartbeat", daemon=True)
+            self._beats.start()
+
+    def _send(self, header: Header) -> None:
+        self.mesh.broadcast_(header.tensor(self.mesh.device))
+        self._last = time.monotonic()
+
+    def _fail(self, error: BaseException) -> None:
+        first = self.error is None
+        self.error = error
+        if first and self.on_failure is not None:
+            self.on_failure(error)
+
+    @contextlib.contextmanager
+    def call(self, header: Header):
+        """Rank 0: hold the lock, send `header`, run the body's
+        collectives; raises if the channel is closed or failed."""
+        if self.mesh.rank != 0:
+            raise RuntimeError(
+                f"rank {self.mesh.rank} serves through its worker loop; "
+                "requests go to rank 0")
+        with self._lock:
+            if self.error is not None:
+                raise RuntimeError("a rank of the serving mesh failed "
+                                   "earlier") from self.error
+            if self._closed.is_set():
+                raise RuntimeError("the serving mesh is closed")
+            try:
+                self._send(header)
+                yield
+            except BaseException as e:
+                self._fail(e)
+                raise
+
+    def _beat(self) -> None:
+        while not self._closed.wait(self.beat_s):
+            with self._lock:
+                if self._closed.is_set() or self.error is not None:
+                    return
+                if time.monotonic() - self._last < self.beat_s:
+                    continue
+                try:
+                    self._send(Header(self.BEAT))
+                except Exception as e:  # noqa: BLE001 — reported through
+                    self._fail(e)       # on_failure, then the thread ends
+                    return
+
+    def recv(self) -> Header:
+        """Ranks >= 1: the next request's header (heartbeats skipped)."""
+        while True:
+            t = torch.zeros(4 + HEADER_DIMS, dtype=torch.int64,
+                            device=self.mesh.device)
+            header = Header.from_tensor(self.mesh.broadcast_(t))
+            if header.op != self.BEAT:
+                return header
+
+    def close(self) -> None:
+        """Rank 0: send the stop header (unless a call failed) and end the
+        heartbeat; idempotent. A no-op on the other ranks."""
+        if self.mesh.rank != 0:
+            return
+        with self._lock:
+            if self._closed.is_set():
+                return
+            self._closed.set()
+            if self.error is None:
+                try:
+                    self._send(Header(self.STOP))
+                except Exception as e:  # noqa: BLE001 — the mesh is gone
+                    self._fail(e)
+                    raise
+        if self._beats is not None:
+            self._beats.join(timeout=10)

@@ -20,9 +20,25 @@ normalizer, so the only effect is input quantization.
 
 `arch` is "AEC" (the parity model) or "packed" (models/packed.py, the
 (4, 101) geometry only), for both predictors, their `from_checkpoint` and
-so for the waveform frontend. Not ported yet: mesh serving (`mesh=`), the
-next slice of multi-GPU, which raises NotImplementedError (ROADMAP.md
-Queue 1 item 11).
+so for the waveform frontend.
+
+Mesh serving (`mesh=`, a `core.mesh.DataMesh`): every rank of the group
+holds the model, and rank 0 serves. Each chunk's bucket size is a
+multiple of the world; rank 0 broadcasts the wire-encoded chunk after a
+request header (`core.mesh.RequestChannel`), each rank runs the model on
+its `DataMesh.block` of it, and the outputs are gathered. The other ranks
+run `serve_worker(predictor, frontend)`, which does their part of every
+call rank 0 makes until rank 0's `close()` (which `serve_http`'s
+`server_close` calls) stops it:
+
+    mesh = core.make_data_mesh()       # after core.initialize_distributed()
+    predictor = serve.DECPredictor.from_checkpoint(path, 5, mesh=mesh)
+    frontend = serve.WaveformFrontend(predictor, fuse=True)
+    if mesh.rank == 0:
+        out = frontend(waveform)       # ... and predictor(windows)
+        predictor.close()
+    else:
+        serve.serve_worker(predictor, frontend)
 """
 
 from __future__ import annotations
@@ -35,6 +51,11 @@ import torch
 from spectrogram_cube_clustering_tpu_torch.core.device import (
     fp32_policy,
     resolve_device,
+)
+from spectrogram_cube_clustering_tpu_torch.core.mesh import (
+    Header,
+    RequestChannel,
+    pad_to_multiple,
 )
 from spectrogram_cube_clustering_tpu_torch.core.precision import (
     dequant_wire,
@@ -55,12 +76,12 @@ from spectrogram_cube_clustering_tpu_torch.utils.weights import (
 )
 
 
-def _check_ported(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh serving is not ported yet: the next slice of multi-GPU "
-            "(ROADMAP.md Queue 1 item 11)"
-        )
+#: the request header's ops on a serving mesh (after the channel's own
+#: BEAT and STOP) and kinds
+OP_WINDOWS, OP_WAVEFORM = 2, 3
+KIND_DEC, KIND_AEC = 1, 2
+#: the header's wire codes: float32, then the `core.precision` wires
+_WIRES = (None, torch.bfloat16, torch.float16, torch.int8)
 
 
 def _build_model(kind: str, arch: str, input_hw, attention_faithful: bool,
@@ -89,24 +110,62 @@ def _pad_to(x: torch.Tensor, batch: int) -> torch.Tensor:
     return x
 
 
-def _bucket_ladder(max_batch: int, buckets) -> tuple:
+def _bucket_ladder(max_batch: int, buckets, multiple: int = 1) -> tuple:
     """Sorted chunk sizes. `buckets=True` -> powers of two up to max_batch;
-    a sequence -> those sizes plus max_batch; None -> (max_batch,)."""
+    a sequence -> those sizes plus max_batch; None -> (max_batch,). With
+    `multiple` > 1 (a mesh's world) every size is rounded up to a multiple
+    of it, so each chunk splits evenly over the ranks."""
+    if max_batch % multiple:
+        raise ValueError(
+            f"max_batch {max_batch} must be a multiple of the mesh "
+            f"device count {multiple}"
+        )
     if buckets is True:
-        sizes, b = [], 1
+        sizes, b = [], multiple
         while b < max_batch:
             sizes.append(b)
             b *= 2
         sizes.append(max_batch)
         return tuple(sizes)
     if buckets:
-        sizes = sorted(set(int(b) for b in buckets) | {max_batch})
+        sizes = sorted(set(pad_to_multiple(int(b), multiple)
+                           for b in buckets) | {max_batch})
         if sizes[-1] > max_batch:
             raise ValueError(
                 f"bucket {sizes[-1]} exceeds max_batch {max_batch}"
             )
         return tuple(sizes)
     return (max_batch,)
+
+
+def _bcast_wire(mesh, enc, header: Header):
+    """The wire-encoded payload of `header` on every rank's device: rank 0
+    passes its host encoding `enc` (a tensor, or the int8 wire's
+    {"q", "scale"}), the others None. One broadcast of the payload's bytes
+    (the int8 codes and their per-sample scales in one buffer)."""
+    wire = _WIRES[header.wire]
+    shape = header.shape
+    dtype = torch.float32 if wire is None else wire
+    n = int(np.prod(shape)) * dtype.itemsize
+    scale_shape = (shape[0],) + (1,) * (len(shape) - 1)
+    total = n + (4 * shape[0] if wire == torch.int8 else 0)
+    if enc is None:
+        buf = torch.empty(total, dtype=torch.uint8, device=mesh.device)
+    else:
+        parts = ([enc["q"], enc["scale"]] if isinstance(enc, dict)
+                 else [enc])
+        buf = torch.cat([p.contiguous().reshape(-1).view(torch.uint8)
+                         for p in parts]).to(mesh.device)
+    mesh.broadcast_(buf)
+    data = buf[:n].view(dtype).reshape(shape)
+    if wire != torch.int8:
+        return data
+    return {"q": data,
+            "scale": buf[n:].view(torch.float32).reshape(scale_shape)}
+
+
+def _wire_code(wire) -> int:
+    return _WIRES.index(wire)
 
 
 def _run_chunked(fn, x: torch.Tensor, sizes: tuple) -> tuple:
@@ -128,43 +187,96 @@ def _run_chunked(fn, x: torch.Tensor, sizes: tuple) -> tuple:
 
 
 class _Predictor:
-    """Shared plumbing: device, bucket ladder, host <-> device. On a CUDA
-    device it turns TF32 off process-wide (`core.fp32_policy`), as the
-    float32 reference requires."""
+    """Shared plumbing: device, bucket ladder, host <-> device, and on a
+    mesh the request channel. On a CUDA device it turns TF32 off
+    process-wide (`core.fp32_policy`), as the float32 reference
+    requires."""
 
     def __init__(self, model, max_batch, transform, buckets, device,
-                 transfer_dtype=None):
+                 transfer_dtype=None, mesh=None, kind=KIND_DEC):
         # "float32" is the full-width wire, as None
         self._wire_dtype = wire_dtype(
             None if transfer_dtype == "float32" else transfer_dtype)
+        self.max_batch = int(max_batch)
+        self.sizes = _bucket_ladder(self.max_batch, buckets,
+                                    1 if mesh is None else mesh.world)
+        if mesh is not None:
+            if device is not None and resolve_device(device) != mesh.device:
+                raise ValueError(
+                    f"device {device} is not the mesh's device {mesh.device}")
+            device = mesh.device
+        self.mesh = mesh
+        self.channel = None if mesh is None else RequestChannel(mesh)
+        self._kind = kind
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             fp32_policy()
         self.model = model.to(self.device).eval()
         self.input_hw = model.input_hw
-        self.max_batch = int(max_batch)
-        self.sizes = _bucket_ladder(self.max_batch, buckets)
         self._normalize = make_normalizer(transform)
 
     def predict_tensor(self, x: torch.Tensor) -> tuple:
         """Windows (n, H, W, 1) on the device -> this predictor's outputs
-        on the device, in `sizes` chunks."""
+        on the device, in `sizes` chunks (on a mesh: this rank's alone,
+        in chunks of a rank's share of each size)."""
+        sizes = self.sizes if self.mesh is None else tuple(
+            s // self.mesh.world for s in self.sizes)
         with torch.inference_mode():
-            return _run_chunked(self._fn, x, self.sizes)
+            return _run_chunked(self._fn, x, sizes)
 
     def _host_call(self, windows: np.ndarray) -> tuple:
         """Host windows -> host outputs, across the wire (encoded on the
         host, restored to float32 on the device)."""
-        enc = quantize_wire(np.asarray(windows, np.float32), self._wire_dtype)
+        x = np.asarray(windows, np.float32)
+        if self.mesh is not None:
+            outs = _run_chunked(self._mesh_call, torch.from_numpy(x),
+                                self.sizes)
+            return tuple(o.numpy() for o in outs)
+        enc = quantize_wire(x, self._wire_dtype)
         x = dequant_wire(wire_to(enc, self.device))
         return tuple(o.cpu().numpy() for o in self.predict_tensor(x))
 
+    def _mesh_call(self, xb: torch.Tensor) -> tuple:
+        """Rank 0: one padded chunk (a CPU tensor) over the mesh -> the
+        outputs as CPU tensors."""
+        enc = quantize_wire(xb.numpy(), self._wire_dtype)
+        header = Header(OP_WINDOWS, self._kind,
+                        _wire_code(self._wire_dtype), tuple(xb.shape))
+        with self.channel.call(header):
+            return tuple(o.cpu() for o in self._mesh_part(header, enc))
+
+    def _mesh_part(self, header: Header, enc=None) -> tuple:
+        """Every rank's part of a window call: the payload (rank 0's `enc`)
+        broadcast, the model on this rank's block of it, the outputs
+        gathered whole on every rank."""
+        x = _bcast_wire(self.mesh, enc, header)
+        lo, hi = self.mesh.block(header.shape[0])
+        if isinstance(x, dict):
+            x = {k: v[lo:hi] for k, v in x.items()}
+        else:
+            x = x[lo:hi]
+        with torch.inference_mode():
+            outs = self._fn(dequant_wire(x))
+            return tuple(self.mesh.gather(o).reshape(-1, *o.shape[1:])
+                         for o in outs)
+
     def warmup(self) -> None:
-        """Run every bucket once (cuDNN and allocator set-up) before traffic."""
+        """Run every bucket once (cuDNN and allocator set-up) before
+        traffic; on a mesh, through the mesh from rank 0."""
         for size in self.sizes:
+            if self.mesh is not None:
+                self._host_call(np.zeros((size, *self.input_hw, 1),
+                                         np.float32))
+                continue
             self.predict_tensor(
                 torch.zeros((size, *self.input_hw, 1), device=self.device)
             )
+
+    def close(self) -> None:
+        """On a mesh, stop the other ranks' `serve_worker` (rank 0; the
+        predictor takes no call after it). Nothing without a mesh."""
+        if self.channel is not None:
+            self.channel.close()
 
 
 class DECPredictor(_Predictor):
@@ -185,12 +297,11 @@ class DECPredictor(_Predictor):
         attention_faithful: bool = True,
         device=None,
     ):
-        _check_ported(mesh)
         model = _loaded(_build_model("DEC", arch, input_hw,
                                      attention_faithful, n_clusters),
                         state_dict, f"{arch} DEC")
         super().__init__(model, max_batch, transform, buckets, device,
-                         transfer_dtype)
+                         transfer_dtype, mesh, KIND_DEC)
 
     @classmethod
     def from_checkpoint(cls, path: str, n_clusters: int, **kw) -> "DECPredictor":
@@ -225,14 +336,13 @@ class AECEncoder(_Predictor):
         attention_faithful: bool = True,
         device=None,
     ):
-        _check_ported(mesh)
         # a DEC checkpoint serves its encoder too: the centroids are unused
         model = _loaded(
             _build_model("AEC", arch, input_hw, attention_faithful),
             {k: v for k, v in state_dict.items() if k != "clustering.weights"},
             f"{arch} AEC")
         super().__init__(model, max_batch, transform, buckets, device,
-                         transfer_dtype)
+                         transfer_dtype, mesh, KIND_AEC)
 
     @classmethod
     def from_checkpoint(cls, path: str, **kw) -> "AECEncoder":
@@ -255,13 +365,24 @@ class WaveformFrontend:
     JAX frontend; only the last chunk is shorter. Device memory per launch
     is bounded by channels x chunk_samples.
 
-    With `fuse=None` (auto) a bare predictor takes the FUSED route: STFT,
-    normalization and model run on the device and the windows never leave
-    it; the raw samples cross in the predictor's `transfer_dtype`, each
-    chunk's segment encoded on the host (int8: one scale per channel and
-    segment, as the JAX frontend's rank-1 segments). A predictor without `predict_tensor` (a `MicroBatcher`), or
-    `fuse=False`, takes the two-pass route: `windows()` brings the windows
-    to the host and the predictor (or batcher) takes them from there.
+    With `fuse=None` (auto) a bare single-device predictor takes the
+    FUSED route: STFT, normalization and model run on the device and the
+    windows never leave it; the raw samples cross in the predictor's
+    `transfer_dtype`, each chunk's segment encoded on the host (int8: one
+    scale per channel and segment, as the JAX frontend's rank-1
+    segments). A predictor without `predict_tensor` (a `MicroBatcher`),
+    a mesh predictor, or `fuse=False`, takes the two-pass route:
+    `windows()` brings the windows to the host (on a mesh: K1 on rank
+    0's card) and the predictor (or batcher) takes them from there.
+
+    `fuse=True` on a mesh predictor builds the mesh-fused route: rank 0
+    broadcasts each chunk's wire-encoded samples after a request header,
+    every rank restores float32, zero-pads the time axis to world x
+    `per` windows plus the `nperseg - hop` halo (`per` = the chunk's
+    windows over the world, rounded up), and runs K1 and the model on its
+    time shard of `per` whole windows of every channel (its samples plus
+    the halo, cut from the broadcast segment, so no halo exchange runs).
+    Only the outputs are gathered; the windows never leave the ranks.
     """
 
     def __init__(
@@ -298,8 +419,9 @@ class WaveformFrontend:
         self.device = resolve_device(
             device if device is not None else getattr(predictor, "device", None)
         )
+        self.mesh = getattr(predictor, "mesh", None)
         if fuse is None:
-            fuse = hasattr(predictor, "predict_tensor")
+            fuse = hasattr(predictor, "predict_tensor") and self.mesh is None
         if fuse and not hasattr(predictor, "predict_tensor"):
             raise ValueError(
                 f"fuse=True needs a predictor with predict_tensor, got "
@@ -354,6 +476,56 @@ class WaveformFrontend:
             for p in zip(*parts)
         )
 
+    def _mesh_fused(self, w: np.ndarray) -> tuple:
+        """Rank 0's mesh-fused route: each time chunk's (C, L) segment over
+        the mesh -> the host outputs, channel-major over the request."""
+        channels, n_win = w.shape[0], self.n_windows(w.shape[1])
+        seg_len = self.chunk + self.nperseg - self.hop
+        code = _wire_code(self._fused_wire)
+        parts = []
+        for c in range(-(-n_win // self._win_per_chunk)):
+            seg = np.ascontiguousarray(
+                w[:, c * self.chunk : c * self.chunk + seg_len])
+            enc = quantize_wire(seg, self._fused_wire)
+            header = Header(OP_WAVEFORM, self.predictor._kind, code,
+                            seg.shape)
+            with self.predictor.channel.call(header):
+                outs = self._mesh_part(header, enc)
+                parts.append(tuple(o.cpu().numpy() for o in outs))
+        return tuple(
+            np.concatenate(p, axis=1).reshape(channels * n_win,
+                                              *p[0].shape[2:])
+            for p in zip(*parts)
+        )
+
+    def _mesh_part(self, header: Header, enc=None) -> tuple:
+        """Every rank's part of a mesh-fused chunk: the segment (rank 0's
+        `enc`) broadcast and restored to float32, then zero-padded; K1 and
+        the model on this rank's `per` windows of every channel; the
+        outputs gathered whole, as (C, chunk windows, ...)."""
+        mesh = self.mesh
+        seg = dequant_wire(_bcast_wire(mesh, enc, header))
+        channels, length = header.shape
+        n_win = self.n_windows(length)
+        per = -(-n_win // mesh.world)
+        halo = self.nperseg - self.hop
+        seg = torch.nn.functional.pad(
+            seg, (0, mesh.world * per * self._span + halo - length))
+        lo = mesh.rank * per * self._span
+        with torch.inference_mode():
+            windows = spectrogram_windows(
+                seg[:, lo : lo + per * self._span + halo],
+                nperseg=self.nperseg, hop=self.hop,
+                window_rows=self.window_rows, transform=None,
+            )
+            outs = self.predictor.predict_tensor(windows)
+            return tuple(
+                mesh.gather(o.reshape(channels, per, *o.shape[1:]))
+                .transpose(0, 1).reshape(channels, mesh.world * per,
+                                         *o.shape[1:])[:, :n_win]
+                for o in outs
+            )
+
     def windows(self, wave) -> np.ndarray:
         """(T,) | (C, T) -> (total_windows, window_rows, nfreq, 1) float32
         on the host, channel-major like `spectrogram_windows`."""
@@ -375,9 +547,10 @@ class WaveformFrontend:
         i * window_rows * hop)."""
         w = self._as_channels(wave)
         if self.fused:
-            outs = [o.cpu().numpy()
-                    for o in self._per_chunk(w, self.predictor.predict_tensor,
-                                             self._fused_wire)]
+            outs = self._mesh_fused(w) if self.mesh is not None else [
+                o.cpu().numpy()
+                for o in self._per_chunk(w, self.predictor.predict_tensor,
+                                         self._fused_wire)]
             keys = ("q", "labels", "z") if len(outs) == 3 else ("z",)
             out = dict(zip(keys, outs))
         else:
@@ -388,3 +561,34 @@ class WaveformFrontend:
             len(w), self.n_windows(w.shape[1]), np.int64
         )
         return out
+
+
+def serve_worker(predictor, frontend: Optional[WaveformFrontend] = None
+                 ) -> None:
+    """Ranks >= 1 of a serving mesh: run this rank's part of every call
+    rank 0 makes on `predictor` (window requests) and on `frontend`'s
+    mesh-fused route, until rank 0 closes the predictor. Build both as
+    rank 0 does; heartbeats are skipped. Raises for a request this rank
+    cannot run (another model kind, a fused waveform without a fused
+    `frontend`), which ends the process and so fails the mesh."""
+    channel = predictor.channel
+    if channel is None or predictor.mesh.rank == 0:
+        raise ValueError("serve_worker runs on ranks >= 1 of a mesh "
+                         "predictor")
+    while True:
+        header = channel.recv()
+        if header.op == RequestChannel.STOP:
+            return
+        if header.kind != predictor._kind:
+            raise RuntimeError(
+                f"rank {predictor.mesh.rank}: a request for model kind "
+                f"{header.kind}, this rank serves {predictor._kind}")
+        if header.op == OP_WINDOWS:
+            predictor._mesh_part(header)
+        elif (header.op == OP_WAVEFORM and frontend is not None
+              and frontend.fused):
+            frontend._mesh_part(header)
+        else:
+            raise RuntimeError(
+                f"rank {predictor.mesh.rank}: no handler for request op "
+                f"{header.op}")

@@ -1,11 +1,13 @@
 """HTTP serving front end with dynamic micro-batching, for the torch port.
 
-This module is a copy of the JAX package's `serve_http.py` with only its
-entry point changed: the HTTP layer is numpy-only, but any import from
-`spectrogram_cube_clustering_tpu` loads jax through that package's
-`__init__`, and the JAX package is not edited to import lazily. So the
-copy stays (ROADMAP.md Queue 1 item 0), pinned to the original by
-`tests/test_torch_serve.py`.
+This module is a copy of the JAX package's `serve_http.py` with its entry
+point changed and two mesh additions (`/healthz` gives a mesh
+predictor's world as "mesh"; `server_close` closes the predictor, which
+stops a mesh's worker ranks): the HTTP layer is numpy-only, but any
+import from `spectrogram_cube_clustering_tpu` loads jax through that
+package's `__init__`, and the JAX package is not edited to import
+lazily. So the copy stays (ROADMAP.md Queue 1 item 0), pinned to the
+original by `tests/test_torch_serve.py`.
 
 - `MicroBatcher`: coalesces concurrent requests into single device passes;
   requests wait at most `max_wait_ms` for co-travelers, results are split
@@ -20,7 +22,12 @@ copy stays (ROADMAP.md Queue 1 item 0), pinned to the original by
       GET  /healthz           -> JSON model metadata
       GET  /stats             -> JSON counters (occupancy, latency quantiles)
 
-- `main`: the `scc-serve-torch` console entry point.
+- `main`: the `scc-serve-torch` console entry point. With `--mesh`, one
+  process per GPU under torchrun serves data-parallel: rank 0 binds the
+  port and serves, the other ranks run `serve.serve_worker`, and a rank
+  that fails makes the run exit non-zero:
+
+      torchrun --nproc_per_node=4 -m spectrogram_cube_clustering_tpu_torch.serve_http CKPT --mesh --n-clusters 5
 """
 
 from __future__ import annotations
@@ -273,6 +280,9 @@ class ServingServer(ThreadingHTTPServer):
         n_clusters = getattr(getattr(p, "model", None), "n_clusters", None)
         if n_clusters is not None:
             meta["n_clusters"] = int(n_clusters)
+        mesh = getattr(p, "mesh", None)
+        if mesh is not None:
+            meta["mesh"] = mesh.world  # ranks serving each request
         wf = self.waveform_frontend
         if wf is not None:
             meta["waveform"] = {
@@ -292,6 +302,10 @@ class ServingServer(ThreadingHTTPServer):
         if batcher is not None:
             batcher.close()
         super().server_close()
+        # a mesh predictor's close stops the other ranks' worker loops
+        close = getattr(self.predictor, "close", None)
+        if close is not None:
+            close()
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -555,16 +569,23 @@ def main(argv=None) -> int:
     ap.add_argument("--max-request-mb", type=float, default=256.0,
                     help="reject request bodies above this size (413); "
                     "clients should chunk windows instead")
+    ap.add_argument("--mesh", action="store_true",
+                    help="serve data-parallel over every rank of a "
+                    "torch.distributed group, one process per GPU under "
+                    "torchrun (the model on each rank, each request batch "
+                    "split over them); rank 0 serves HTTP")
     ap.add_argument("--waveform", action="store_true",
                     help="also accept raw-sample payloads on "
                     "/predict_waveform (windowed on the device; geometry "
                     "from --nperseg/--hop and --input-hw's window_rows)")
     ap.add_argument("--fuse-waveform",
-                    action=argparse.BooleanOptionalAction, default=True,
+                    action=argparse.BooleanOptionalAction, default=None,
                     help="serve /predict_waveform with STFT and model on "
-                    "the device in one pass; --no-fuse-waveform takes the "
-                    "two-pass route, whose model pass coalesces with window "
-                    "clients in the MicroBatcher")
+                    "the device in one pass (the default without --mesh; "
+                    "with --mesh, each rank its time shard); "
+                    "--no-fuse-waveform takes the two-pass route, whose "
+                    "model pass coalesces with window clients in the "
+                    "MicroBatcher (the default with --mesh)")
     ap.add_argument("--nperseg", type=int, default=200,
                     help="waveform-mode STFT segment length")
     ap.add_argument("--hop", type=int, default=100,
@@ -578,11 +599,30 @@ def main(argv=None) -> int:
     from spectrogram_cube_clustering_tpu_torch import serve as _serve
     from spectrogram_cube_clustering_tpu_torch.core.device import fp32_policy
 
+    mesh = None
+    if args.mesh:
+        from spectrogram_cube_clustering_tpu_torch.core.mesh import (
+            initialize_distributed,
+            make_data_mesh,
+            pad_to_multiple,
+        )
+
+        initialize_distributed(device=args.device)
+        mesh = make_data_mesh()
+        rounded = pad_to_multiple(args.max_batch, mesh.world)
+        if rounded != args.max_batch:
+            # batch sizes must divide over the mesh; round up rather than
+            # refuse at predictor construction
+            if mesh.rank == 0:
+                print(f"scc-serve-torch: --max-batch {args.max_batch} "
+                      f"rounded up to {rounded} ({mesh.world} mesh devices)")
+            args.max_batch = rounded
     fp32_policy()
     common = dict(
         max_batch=args.max_batch, transform=args.transform,
         buckets=args.buckets or None, input_hw=tuple(args.input_hw),
-        attention_faithful=args.attention_faithful, device=args.device,
+        attention_faithful=args.attention_faithful,
+        device=args.device if mesh is None else None, mesh=mesh,
         transfer_dtype=args.transfer_dtype,
     )
     if args.model == "DEC":
@@ -597,9 +637,20 @@ def main(argv=None) -> int:
     if args.waveform:
         frontend = _serve.WaveformFrontend(
             predictor, nperseg=args.nperseg, hop=args.hop,
-            window_rows=int(args.input_hw[0]),
-            fuse=None if args.fuse_waveform else False,
+            window_rows=int(args.input_hw[0]), fuse=args.fuse_waveform,
         )
+        if mesh is not None and mesh.rank == 0 and args.fuse_waveform is None:
+            print("scc-serve-torch: mesh predictors serve waveforms through "
+                  "the two-pass route by default (the mesh-fused route, K1 "
+                  "on each rank's time shard, is --fuse-waveform or "
+                  "serve.WaveformFrontend(pred, fuse=True))")
+    if mesh is not None and mesh.rank != 0:
+        # this rank's part of every call rank 0 makes, warm-up included,
+        # until rank 0's server_close stops it; an error ends the process
+        _serve.serve_worker(predictor, frontend)
+        _leave()
+        return 0
+    if frontend is not None:
         frontend.warmup()  # builds the STFT kernel; covers the buckets too
     else:
         predictor.warmup()
@@ -609,17 +660,36 @@ def main(argv=None) -> int:
         max_wait_ms=args.max_wait_ms, max_request_mb=args.max_request_mb,
         waveform_frontend=frontend,
     )
+    if mesh is not None:
+        # a failed collective (a rank gone) stops the server, and the run
+        # exits non-zero below
+        predictor.channel.on_failure = lambda e: threading.Thread(
+            target=server.shutdown, daemon=True).start()
     host, port = server.server_address[:2]
+    mesh_note = f", mesh x{mesh.world}" if mesh is not None else ""
     print(f"scc-serve-torch: {args.model} on http://{host}:{port} "
           f"({predictor.device}, max_batch={args.max_batch}, "
-          f"wait={args.max_wait_ms}ms)")
+          f"wait={args.max_wait_ms}ms{mesh_note})", flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:
         pass
     finally:
         server.server_close()
+    if mesh is not None:
+        if predictor.channel.error is not None:
+            raise RuntimeError(
+                "a rank of the serving mesh failed; the server stopped"
+            ) from predictor.channel.error
+        _leave()
     return 0
+
+
+def _leave() -> None:
+    """Leave the mesh's process group (every rank, after serving)."""
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
 
 
 if __name__ == "__main__":

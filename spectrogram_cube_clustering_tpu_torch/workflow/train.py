@@ -130,10 +130,6 @@ def check_not_ported(config) -> None:
         raise NotImplementedError(
             "tb=True is not ported: TensorBoard is ROADMAP Queue 1 item 15; "
             "set tb = False")
-    if getattr(config, "km_metrics", False):
-        raise NotImplementedError(
-            "km_metrics=True is not ported yet: the cluster-count "
-            "diagnostics are ROADMAP Queue 1 item 16")
 
 
 def use_mesh(config, mesh) -> None:

@@ -313,7 +313,6 @@ def test_run_dc_argv_and_checks(tmp_path, cube, capsys):
 
 @pytest.mark.parametrize("params,item", [
     ({"tb": "True"}, "item 15"),
-    ({"km_metrics": "True"}, "item 16"),
     ({"loadmode": "stream", "datafiletype": "h5"}, "item 14"),
     ({"datafiletype": "h5"}, "item 14"),
 ])
@@ -329,16 +328,17 @@ def test_not_ported_raise(tmp_path, cube, params, item):
 
 def test_library_not_ported_raise(tmp_path):
     """Under a mesh (ported: tests/test_torch_sharding.py) the library
-    stages still raise for the options the port does not run, with
-    figures on or off (the figures run: tests/test_torch_figures.py),
-    and refuse a mesh on another device than the ini's."""
+    stages still raise for `tb`, the option the port does not run, with
+    figures on or off (the figures run: tests/test_torch_figures.py; the
+    cluster-count diagnostics too: tests/test_torch_km_metrics.py), and
+    refuse a mesh on another device than the ini's."""
     from spectrogram_cube_clustering_tpu_torch import workflow
     from spectrogram_cube_clustering_tpu_torch.core.mesh import DataMesh
     from spectrogram_cube_clustering_tpu_torch.utils import load_config
 
     mesh = DataMesh(rank=0, world=2, device=torch.device("cpu"))
     for figures in ("True", "False"):
-        for option, item in (("tb", "item 15"), ("km_metrics", "item 16")):
+        for option, item in (("tb", "item 15"),):
             ini = _ini(str(tmp_path), "unused",
                        {"model": "DEC", "mode": "train", "figures": figures,
                         option: "True"})

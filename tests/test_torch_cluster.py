@@ -93,6 +93,31 @@ def test_lloyd_batched_restarts_equal_single_runs(blobs):
         assert torch.equal(lab[r], l1)
 
 
+def test_plus_plus_draws_match_numpy_inverse_cdf(blobs):
+    """k-means++ seeding draws the first rows, then (K - 1, R) uniforms,
+    from a CPU generator and picks by inverse CDF over float64 cumulative
+    weights, so
+    the centres depend on the seed alone, not on the data's device: the
+    same draws replayed in numpy (searchsorted, side right) pick the same
+    rows."""
+    x, _ = blobs
+    z = torch.from_numpy(x)
+    inits = tkmeans.plus_plus_init(z, 5, 6, torch.Generator().manual_seed(3))
+    tiny = np.finfo(np.float32).tiny
+    gen = torch.Generator().manual_seed(3)
+    first = torch.randint(0, len(x), (6,), generator=gen).numpy()
+    d2 = np.sum((x[None] - x[first][:, None]) ** 2, axis=-1)
+    uniforms = torch.rand((4, 6), generator=gen, dtype=torch.float64).numpy()
+    rows = [first]
+    for u in uniforms:
+        cdf = np.cumsum(np.maximum(d2, tiny).astype(np.float64), axis=1)
+        idx = np.array([np.searchsorted(cdf[r], u[r] * cdf[r, -1], "right")
+                        for r in range(6)]).clip(max=len(x) - 1)
+        rows.append(idx)
+        d2 = np.minimum(d2, np.sum((x[None] - x[idx][:, None]) ** 2, -1))
+    np.testing.assert_array_equal(inits.numpy(), x[np.stack(rows, 1)])
+
+
 def test_tol_uses_population_variance(blobs):
     """tol_abs = tol * mean of the per-feature population variance (ddof
     0), as sklearn and the JAX package compute it."""

@@ -945,3 +945,41 @@ def test_sharded_gmm_on_card_matches_dense(card_mesh):
     want = cluster.gmm(z, 4, n_init=10, device=card_mesh.device)[0]
     assert got.device.type == "cuda"
     assert cluster.nmi(want.cpu().numpy(), got.cpu().numpy()) >= 0.99
+
+
+def test_mesh_serving_on_card_matches_one_device(card_mesh, cuda_device):
+    """A one-rank mesh predictor and its mesh-fused frontend on the card
+    against the same model without a mesh: q and z within rtol 1e-5 /
+    atol 1e-7, labels equal, K1 launched once a chunk."""
+    sd = _dec(4).state_dict()
+    mesh_pred = serve.DECPredictor(sd, 5, max_batch=64, buckets=True,
+                                   mesh=card_mesh)
+    one = serve.DECPredictor(sd, 5, max_batch=64, buckets=True,
+                             device=cuda_device)
+    wave = _randn((2, 30_000), "cpu", seed=8).numpy()
+    fused = serve.WaveformFrontend(mesh_pred, chunk_samples=8_000, fuse=True)
+    before = cuda_stft.LAUNCHES
+    got = fused(wave)
+    assert cuda_stft.LAUNCHES - before == 4  # 74 windows, 20 a chunk
+    want = serve.WaveformFrontend(one)(wave)
+    windows = fused.windows(wave)
+    for a, b in ((got, want), (mesh_pred(windows), one(windows))):
+        for k in ("q", "z"):
+            np.testing.assert_allclose(a[k], b[k], rtol=1e-5, atol=1e-7)
+        np.testing.assert_array_equal(a["labels"], b["labels"])
+    mesh_pred.close()
+
+
+def test_gap_statistic_on_card_matches_cpu(cuda_device):
+    """`cluster.gap_statistic` on the card against the CPU on planted
+    blobs: k-means++ draws from the CPU's generator on both, so the fits
+    start alike and the data inertias agree within rtol 1e-4 at every K,
+    past the planted 4 too."""
+    rng = np.random.default_rng(0)
+    centres = rng.normal(size=(4, 9)) * 5
+    z = (centres[rng.integers(0, 4, 2_000)]
+         + rng.normal(size=(2_000, 9))).astype(np.float32)
+    got = cluster.gap_statistic(z, [2, 3, 4, 5, 6], device=cuda_device)
+    want = cluster.gap_statistic(z, [2, 3, 4, 5, 6], device="cpu")
+    np.testing.assert_allclose(got["inertia"], want["inertia"], rtol=1e-4)
+    assert np.isfinite(got["gap_g"]).all() and np.isfinite(got["gap_u"]).all()

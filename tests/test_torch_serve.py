@@ -151,11 +151,7 @@ def test_frontend_refuses_what_jax_refuses(predictors):
 
 def test_options_not_ported_raise(trained):
     _, sd, _ = trained
-    with pytest.raises(NotImplementedError, match="not ported"):
-        serve.DECPredictor(sd, 3, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="not ported"):
-        serve.AECEncoder(sd, device="cpu", mesh=object())
-    # arch='packed' is ported (tests/test_torch_arch_workflow.py); a parity
+    # mesh= is ported (tests/test_torch_serve_mesh.py); arch='packed' is ported (tests/test_torch_arch_workflow.py); a parity
     # checkpoint served as packed is refused as by the JAX predictors
     with pytest.raises(ValueError, match="missing"):
         serve.DECPredictor(sd, 3, device="cpu", arch="packed")
