@@ -224,6 +224,38 @@ the script exits non-zero:
    k-means NMI of a planted-class waveform's windows from each); K1 and
    the TF32 kernel must launch and its JSON hold every key. The NMIs are
    printed, not gated;
+4m. the RIS event catalog (`data/h5.py`, `datafiletype = h5`; no kernel:
+   the catalog holds spectrograms, so K1 must launch 0 times in the
+   phase): (a) a synthetic catalog of 32,768 events in 5 planted
+   frequency bands (benchmarks/h5_workflow_tpu.py's planting), raw 88 x
+   101 rows cropped and vec_norm-normalized with the port's
+   `crop_specgram` / `normalize_specgram` into the (32,768, 1, 87, 100)
+   float32 dump `convert-h5-to-np-torch` writes (1.14 GB), with a TraVal
+   index pickle (80/20); the five stages through `cli.run_dc` with
+   `h5_ftype = np` and `indexpath`, figures off, in the JAX chip
+   protocol (AEC 12 epochs, batch 512, lr 1e-3, no early stopping; GMM
+   K = 5, 100 restarts; DEC init = load, 12 epochs, batch 512, lr 5e-4,
+   gamma 0.01, tol 1e-3): input_hw (87, 100), Z_AEC (M, 9), Xr_AEC (M,
+   1, 87, 100), the JAX layout's artifact names, DEC-predict NMI >= 0.90
+   against the planted classes; one AEC epoch and one DEC segment with a
+   refresh on 2,048 of these windows within rtol 1e-3 on the CPU and the
+   card (deterministic cuDNN); (b) where h5py imports, the five stages
+   from a `.h5` of the catalog and with `loadmode = stream`, same gate;
+   where it does not (the card's machine), run-dc from the `.h5`, the
+   stream route and each of the four H5 tools must raise ImportError
+   naming h5py and leave the tree as it was; (c) where tensorboard
+   imports, a 2-epoch AEC and a 1-epoch DEC train with `tb = True` must
+   write the JAX tags, a step per epoch (AEC) and the refreshes' steps
+   (delta); where not, run-dc with `tb = True` must raise ImportError
+   naming tensorboard before writing anything and start no process; (d)
+   `export-torch-checkpoint-torch` of (a)'s DEC gives the reference's
+   keys and shapes at (87, 100) in float64, `convert-torch-checkpoint-
+   torch` takes it back, and DEC predict from that gives q and z
+   bit-equal to (a)'s; (e) `utils.profiling.trace` around one AEC epoch
+   of (a)'s training windows writes a chrome trace holding CUDA kernel
+   events and the `annotate` span, and a `StepTimer` over its steps gives
+   items_per_sec, printed beside a plain epoch's samples/s. Prints the
+   stage walls, peaks and samples/s;
 5. times: kernel, plain STFT and the library call (`torch.stft` in
    float64, |.|^2, log10) at (16, 2^20) with CUDA events, the kernel's
    bound (an FFT's FP64 operations and the HBM bytes at the H100 SXM
@@ -463,24 +495,25 @@ def check_answer(name: str, got: dict, want: dict, n: int) -> None:
     check(agree, f"{name} labels")
 
 
-def cpu_against_card(sd_aec, sd_dec, x, labels, centroids) -> float:
+def cpu_against_card(sd_aec, sd_dec, x, labels, centroids,
+                     input_hw=(4, 101)) -> float:
     """One AEC epoch and one DEC epoch with a refresh half-way from the
-    same weights on the CPU and on the card; returns the largest relative
-    gap of their losses."""
+    same weights on the CPU and on the card, the models at `input_hw`;
+    returns the largest relative gap of their losses."""
     from spectrogram_cube_clustering_tpu_torch import models, train
 
     hist, deltas = {}, {}
     split = len(x) * 3 // 4
     for dev in ("cpu", "cuda"):
         xd = x.to(dev)
-        aec = models.AEC(device=dev)
+        aec = models.AEC(input_hw=input_hw, device=dev)
         aec.load_state_dict(sd_aec)
         out = train.train_aec(
             aec, train.create_train_state(aec, 1e-3),
             train.make_batched_data(xd[:split], 64),
             train.make_batched_data(xd[split:], 64),
             train.AECConfig(n_epochs=1))
-        dec = models.DEC(5, device=dev)
+        dec = models.DEC(5, input_hw=input_hw, device=dev)
         dec.load_state_dict(sd_dec)
         data = train.make_batched_data(xd, 64)
         seg = train.train_dec(
@@ -772,16 +805,29 @@ def _files(path: str) -> set:
     return {f for f in os.listdir(path) if not f.startswith("ExpConfig")}
 
 
+#: 4c's protocol, the default of `run_five_stages`: (PARAMETERS,
+#: HYPERPARAMETERS) of the AEC and DEC train stages
+PROTOCOL = {
+    "aec": ({"n_epochs": 3, "early_stopping": "True"},
+            {"batch_size": "64", "lr": "0.001"}),
+    "dec": ({"n_epochs": 2},
+            {"batch_size": "64", "lr": "0.0005", "n_clusters": "5",
+             "gamma": "0.001", "tol": "0.003"}),
+}
+
+
 def run_five_stages(root: str, universal: dict, card: str, name: str,
-                    extra=None, dec: bool = True, mesh=None):
+                    extra=None, dec: bool = True, mesh=None,
+                    protocol=None, configs=None):
     """AEC train, AEC predict, GMM fit, DEC train (init=load) and DEC
     predict (with `dec=False` the two AEC stages only), each through the
-    port's `cli.run_dc` with the card as the default device and the
-    `extra` ini keys (under a `mesh`, over it, each rank writing its inis
-    to its own directory); checks every stage's artifact names. Returns
-    each stage's directory, the stage walls, the `load_data` read seconds
-    and each stage's peak device memory above what was allocated when it
-    started."""
+    port's `cli.run_dc` with the card as the default device, the
+    `protocol`'s train keys (default `PROTOCOL`) and the `extra` ini keys
+    (under a `mesh`, over it, each rank writing its inis to its own
+    directory); checks every stage's artifact names. Returns each stage's
+    directory, the stage walls, the `load_data` read seconds and each
+    stage's peak device memory above what was allocated when it started;
+    each stage's Configuration goes into `configs` where given."""
     from spectrogram_cube_clustering_tpu_torch import cli
     from spectrogram_cube_clustering_tpu_torch.utils import config_training
 
@@ -807,25 +853,33 @@ def run_five_stages(root: str, universal: dict, card: str, name: str,
         check(cfg.device.type == "cuda", f"{name} {stage} ran on {cfg.device}")
         if hasattr(cfg, "load_seconds"):
             reads[stage] = cfg.load_seconds
+        if configs is not None:
+            configs[stage] = cfg
         return cfg
 
     def run_dir(cfg):
         [d] = [d for d in os.listdir(cfg.savepath_exp) if d.startswith("Run_")]
         return os.path.join(cfg.savepath_exp, d)
 
+    protocol = protocol or PROTOCOL
+    aec_keys, aec_hp = protocol["aec"]
     aec = run_dir(run("aec_train", {"model": "AEC", "mode": "train",
-                                    "n_epochs": 3, "early_stopping": "True"},
-                      {"batch_size": "64", "lr": "0.001"}))
+                                    **aec_keys}, aec_hp))
     weights = os.path.join(aec, "AEC_Params_Final.pt")
     run("aec_predict", {"model": "AEC", "mode": "predict",
                         "saved_weights": weights})
     trees = {"aec_train": aec, "aec_tmp": os.path.join(aec, "tmp"),
              "aec_predict": os.path.join(aec, "Prediction")}
     if dec:
-        trees.update(_dec_stages(run, run_dir, aec, weights))
+        trees.update(_dec_stages(run, run_dir, aec, weights,
+                                 protocol["dec"]))
     want = dict(STAGE_FILES)
     if (extra or {}).get("loadmode") == "stream":
         want["aec_tmp"] = {"SNAPSHOT"}  # the stream loop keeps no best epoch
+    elif aec_keys.get("early_stopping") == "False":  # every epoch's params
+        want["aec_tmp"] = {"SNAPSHOT"} | {
+            f"AEC_Params_{e:03d}.pt" for e in range(1, aec_keys["n_epochs"]
+                                                    + 1)}
     for stage, path in trees.items():
         # later stages write into the run dirs of earlier ones
         later = {"GMM", "Prediction"} if stage == "aec_train" else {
@@ -842,17 +896,16 @@ def run_five_stages(root: str, universal: dict, card: str, name: str,
     return trees, walls, reads, peaks
 
 
-def _dec_stages(run, run_dir, aec: str, weights: str) -> dict:
-    """GMM fit, DEC train and DEC predict of `run_five_stages`; returns
-    their directories."""
+def _dec_stages(run, run_dir, aec: str, weights: str, dec_protocol) -> dict:
+    """GMM fit, DEC train (`dec_protocol`'s keys) and DEC predict of
+    `run_five_stages`; returns their directories."""
     run("gmm_fit", {"model": "GMM", "mode": "fit", "saved_weights": weights,
                     "km_n_init": 100, "km_max_iter": 1000},
         {"n_clusters": "5"})
+    dec_keys, dec_hp = dec_protocol
     dec = run_dir(run("dec_train", {"model": "DEC", "mode": "train",
-                                    "n_epochs": 2, "saved_weights": weights,
-                                    "init": "load"},
-                      {"batch_size": "64", "lr": "0.0005", "n_clusters": "5",
-                       "gamma": "0.001", "tol": "0.003"}))
+                                    "saved_weights": weights, "init": "load",
+                                    **dec_keys}, dec_hp))
     run("dec_predict", {"model": "DEC", "mode": "predict",
                         "saved_weights": os.path.join(dec,
                                                       "DEC_Params_Final.pt")})
@@ -2856,6 +2909,394 @@ def phase_km_metrics(device, card: str, tmp: str) -> None:
           f"4l card vs CPU inertias {table[:, 1]} vs {cpu['inertia']}")
 
 
+#: 4m: the RIS event catalog, planted as benchmarks/h5_workflow_tpu.py
+#: plants it: raw rows (88, 101) holding the time row and frequency
+#: column the crop drops, one of H5_CLASSES frequency bands per event
+H5_EVENTS = 32_768
+H5_CLASSES = 5
+H5_RAW = (88, 101)
+H5_HW = (87, 100)
+H5_BLOCK = 4096  # events generated (and written) at a time
+#: 4m: the JAX chip protocol (h5_workflow_tpu.py:98-131): AEC 12 epochs,
+#: batch 512, no early stopping; GMM K = 5 with 100 restarts; DEC with
+#: init = load, 12 epochs, batch 512
+H5_PROTOCOL = {
+    "aec": ({"n_epochs": 12, "early_stopping": "False"},
+            {"batch_size": "512", "lr": "0.001"}),
+    "dec": ({"n_epochs": 12},
+            {"batch_size": "512", "lr": "0.0005", "n_clusters": "5",
+             "gamma": "0.01", "tol": "0.001"}),
+}
+#: 4m: windows of the CPU-against-card epoch
+H5_CPU_M = 2048
+#: 4m(c): AEC and DEC epochs of the TensorBoard run
+H5_TB_EPOCHS = (2, 1)
+#: 4m(e): the span `annotate` puts around the traced epoch
+H5_SPAN = "scc_aec_epoch"
+
+
+def build_h5_catalog(root: str, seed: int) -> tuple:
+    """The synthetic RIS catalog of 4m: H5_EVENTS raw (88, 101) rows with
+    planted bands, cropped and `vec_norm`-normalized with the port's
+    `crop_specgram` / `normalize_specgram` (the default pipeline of
+    `SeismicDataset` that `convert_h5_to_np` runs) into the (M, 1, 87,
+    100) float32 dump `convert_h5_to_np` writes, block by block; where
+    h5py imports, the raw rows also as a `.h5` catalog (Spectrogram,
+    Trace, Catalogue). And the TraVal index pickle `save_traval_index`
+    writes for M = H5_EVENTS at `seed` (every row but 0, 80/20). Returns
+    (dump, index pickle, .h5 or None, planted classes)."""
+    import importlib.util
+    import pickle
+
+    from spectrogram_cube_clustering_tpu_torch.data.h5 import (
+        crop_specgram,
+        normalize_specgram,
+    )
+
+    m = H5_EVENTS
+    rng = np.random.default_rng(seed + 11)
+    truth = np.arange(m) % H5_CLASSES
+    bands = np.zeros((H5_CLASSES, H5_RAW[0], 1))
+    for k in range(H5_CLASSES):
+        bands[k, 4 + 16 * k:18 + 16 * k] = 1.0
+    dump_path = f"{root}/catalog.npy"
+    dump = np.lib.format.open_memmap(dump_path, mode="w+", dtype=np.float32,
+                                     shape=(m, 1, *H5_HW))
+    h5_path, f = None, None
+    if importlib.util.find_spec("h5py") is not None:
+        import h5py
+
+        h5_path = f"{root}/catalog.h5"
+        f = h5py.File(h5_path, "w")
+        g = f.require_group("/4.0")
+        spec_ds = g.create_dataset("Spectrogram", (m, *H5_RAW), np.float64)
+        trace_ds = g.create_dataset("Trace", (m, 200), np.float64)
+        g.create_dataset("Catalogue", data=np.array(
+            [json.dumps({"Station": "DR01",
+                         "StartTime": "2015-01-01 00:00:00.0"})] * m,
+            dtype=h5py.string_dtype()))
+    try:
+        for lo in range(0, m, H5_BLOCK):
+            hi = min(lo + H5_BLOCK, m)
+            raw = rng.normal(scale=0.1, size=(hi - lo, *H5_RAW))
+            amp = 3.0 + rng.normal(scale=0.2, size=(hi - lo, 1, 1))
+            raw[:, :, 1:] += bands[truth[lo:hi]] * amp
+            raw[:, 87, 1:] = np.arange(100)
+            raw[:, 0:87, 0] = np.linspace(0, 10, 87)
+            dump[lo:hi, 0] = normalize_specgram(
+                crop_specgram(raw.astype(np.float32)), "vec_norm")
+            if f is not None:
+                spec_ds[lo:hi] = raw
+                trace_ds[lo:hi] = rng.normal(size=(hi - lo, 200))
+    finally:
+        if f is not None:
+            f.close()
+    dump.flush()
+    del dump
+    index = np.random.default_rng(seed).choice(np.arange(1, m), size=m - 1,
+                                               replace=False)
+    split = int(0.8 * len(index))
+    index_path = f"{root}/TraValIndex_M={m}.pkl"
+    with open(index_path, "wb") as fh:
+        pickle.dump({"index_tra": index[:split], "index_val": index[split:]},
+                    fh)
+    return dump_path, index_path, h5_path, truth
+
+
+def _tree_with_dirs(path: str) -> dict:
+    """`_tree`, and every directory under path."""
+    out = _tree(path)
+    out.update({os.path.relpath(d, path) + "/": None
+                for d, _, _ in os.walk(path)})
+    return out
+
+
+def _child_pids() -> set:
+    """The live child processes of this one."""
+    me, kids = os.getpid(), set()
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as fh:
+                stat = fh.read()
+        except OSError:
+            continue
+        if int(stat.rsplit(")", 1)[1].split()[1]) == me:
+            kids.add(int(pid))
+    return kids
+
+
+def _refused(what: str, package: str, fn, tree_root: str) -> str:
+    """Call fn, which must raise ImportError naming `package` and leave
+    `tree_root` as it was; returns the message."""
+    before = _tree_with_dirs(tree_root)
+    try:
+        fn()
+    except ImportError as exc:
+        said = str(exc)
+    else:
+        said = None
+    unchanged = _tree_with_dirs(tree_root) == before
+    print(f"h5 4m: without {package}, {what} raised ImportError {said!r}; "
+          f"the tree unchanged {unchanged}", flush=True)
+    check(said is not None and package in said,
+          f"{what} without {package}: {said}")
+    check(unchanged, f"{what} wrote into {tree_root} before refusing")
+    return said
+
+
+def tb_scalars(run_dir: str) -> dict:
+    """tag -> steps of every scalar in the event files under run_dir
+    (tensorboard's EventAccumulator)."""
+    from tensorboard.backend.event_processing.event_accumulator import (
+        EventAccumulator,
+    )
+
+    out = {}
+    for d, _, files in os.walk(run_dir):
+        if any(f.startswith("events.out.tfevents") for f in files):
+            acc = EventAccumulator(d)
+            acc.Reload()
+            for tag in acc.Tags()["scalars"]:
+                out[tag] = [e.step for e in acc.Scalars(tag)]
+    return out
+
+
+def phase_h5_catalog(device, card: str, cuda_stft, tmp: str,
+                     seed: int) -> None:
+    """4m: the RIS event catalog at its (87, 100) geometry on the card:
+    (a) the five stages from the `convert_h5_to_np` dump with the TraVal
+    split, the CPU against the card on 2,048 windows; (b) the `.h5` and
+    stream routes where h5py imports, else their refusals and the four H5
+    tools'; (c) TensorBoard where it imports, else its refusal; (d) the
+    checkpoint tools; (e) `utils.profiling` around one AEC epoch. K1 must
+    not launch: the catalog holds spectrograms."""
+    import importlib.util
+
+    from spectrogram_cube_clustering_tpu_torch import cli, models, train
+    from spectrogram_cube_clustering_tpu_torch import workflow
+    from spectrogram_cube_clustering_tpu_torch.ops.normalize import (
+        make_normalizer,
+    )
+    from spectrogram_cube_clustering_tpu_torch.train.checkpoint import (
+        restore,
+    )
+    from spectrogram_cube_clustering_tpu_torch.utils import (
+        config_training,
+        load_config,
+        profiling,
+    )
+
+    cuda_stft.LAUNCHES = 0  # the phase's run starts here
+    phase_t0 = time.perf_counter()
+    root = f"{tmp}/h5"
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    dump, index, h5_path, truth = build_h5_catalog(root, seed)
+    print(f"h5 4m: catalog of {H5_EVENTS} events, {H5_CLASSES} planted "
+          f"classes, raw {H5_RAW} -> dump {os.path.getsize(dump)} bytes "
+          f"(M, 1, {H5_HW[0]}, {H5_HW[1]}) float32 and the TraVal pickle in "
+          f"{time.perf_counter() - t0:.3f} s (.h5 also: "
+          f"{h5_path is not None})", flush=True)
+    np_source = {"fname_dataset": dump, "datafiletype": "h5",
+                 "h5_ftype": "np", "indexpath": index}
+    inis = f"{tmp}/h5_inis"
+
+    def ini(universal, params, hp=None, savepath=f"{root}/np/Outputs"):
+        return config_training(
+            {"savepath": savepath, "configpath": inis,
+             "transform": "sample_norm_cent", **universal},
+            {"tb": "False", "show": "False", "figures": "False", **params},
+            hp)
+
+    # (a) the five stages from the dump
+    configs = {}
+    trees, walls, reads, peaks = run_five_stages(
+        f"{root}/np", np_source, card, "h5 np", protocol=H5_PROTOCOL,
+        configs=configs)
+    hw = tuple(configs["aec_train"].input_hw)
+    z = np.load(os.path.join(trees["aec_predict"], "Z_AEC.npy"))
+    xr = np.load(os.path.join(trees["aec_predict"], "Xr_AEC.npy"),
+                 mmap_mode="r")
+    n_tra = len(configs["aec_train"].index_tra)
+    aec_rate = n_tra * H5_PROTOCOL["aec"][0]["n_epochs"] / walls["aec_train"]
+    print(f"h5 4m on {card}: input_hw {hw}; Z_AEC {z.shape}, Xr_AEC "
+          f"{xr.shape}; {n_tra} training windows from the TraVal pickle; "
+          f"AEC train stage {aec_rate:.1f} samples/s (windows x epochs over "
+          f"the stage wall, its load included)", flush=True)
+    check(hw == H5_HW, f"h5 input_hw {hw}")
+    check(z.shape == (H5_EVENTS, 9) and np.isfinite(z).all(),
+          f"h5 Z_AEC {z.shape}")
+    check(xr.shape == (H5_EVENTS, 1, *H5_HW)
+          and bool(np.isfinite(xr[:4096]).all()), f"h5 Xr_AEC {xr.shape}")
+    check_dec_predict(trees["dec_predict"], truth, "h5 np")
+    aec_run, dec_run = trees["aec_train"], trees["dec_train"]
+
+    # the CPU against the card on the dump's first windows, normalized as
+    # the workflow does, under cuDNN's deterministic algorithms
+    x_cpu = torch.from_numpy(np.load(dump, mmap_mode="r")[:H5_CPU_M].reshape(
+        H5_CPU_M, *H5_HW, 1).copy())
+    x_cpu = make_normalizer("sample_norm_cent")(x_cpu)
+    gmm = trees["gmm_fit"]
+    torch.backends.cudnn.deterministic = True
+    try:
+        gap = cpu_against_card(
+            restore(os.path.join(aec_run, "AEC_Params_Final.pt")),
+            restore(os.path.join(dec_run, "DEC_Params_Initial.pt")), x_cpu,
+            np.load(os.path.join(gmm, "labels.npy"))[:H5_CPU_M],
+            np.load(os.path.join(gmm, "centroids.npy")), input_hw=H5_HW)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    check(gap <= 1e-3, f"h5 CPU vs card losses rtol {gap}")
+
+    # (b) the .h5 and stream routes, or their refusals
+    if h5_path is not None:
+        h5_source = {"fname_dataset": h5_path, "datafiletype": "h5",
+                     "indexpath": index}
+        pred = run_five_stages(f"{root}/h5file", h5_source, card, "h5 .h5",
+                               protocol=H5_PROTOCOL)[0]["dec_predict"]
+        check_dec_predict(pred, truth, "h5 .h5")
+        pred = run_five_stages(
+            f"{root}/stream", h5_source, card, "h5 stream",
+            extra={**STREAM_KEYS, "h5_stream_block": 256},
+            protocol=H5_PROTOCOL)[0]["dec_predict"]
+        check_dec_predict(pred, truth, "h5 stream")
+    else:
+        aec_keys, aec_hp = H5_PROTOCOL["aec"]
+        train_keys = {"model": "AEC", "mode": "train", **aec_keys}
+        h5_file = f"{root}/catalog.h5"  # what convert-h5-to-np-torch reads
+        _refused("run-dc from the .h5 (h5_ftype = h5)", "h5py",
+                 lambda: cli.run_dc(init_path=ini(
+                     {"fname_dataset": h5_file, "datafiletype": "h5"},
+                     train_keys, aec_hp)), root)
+        _refused("run-dc with loadmode = stream", "h5py",
+                 lambda: cli.run_dc(init_path=ini(
+                     np_source, {**train_keys, **STREAM_KEYS}, aec_hp)),
+                 root)
+        for name, argv in (
+                ("query-h5size-torch", [h5_file]),
+                ("extract-h5dataset-torch",
+                 [h5_file, f"{root}/subset.h5", "--include", '["DR01"]']),
+                ("generate-sample-index-torch", ["100", h5_file, root]),
+                ("convert-h5-to-np-torch",
+                 [h5_file, "--dest", f"{root}/converted.npy"])):
+            tool = getattr(cli, name[:-len("-torch")].replace("-", "_"))
+            _refused(name, "h5py", lambda: tool(argv), root)
+
+    # (c) TensorBoard, or its refusal
+    aec_w = os.path.join(aec_run, "AEC_Params_Final.pt")
+    if importlib.util.find_spec("tensorboard") is not None:
+        n_aec, n_dec = H5_TB_EPOCHS
+        runs = {}
+        for model, keys, hp in (
+                ("AEC", {"n_epochs": n_aec, "early_stopping": "False"},
+                 H5_PROTOCOL["aec"][1]),
+                ("DEC", {"n_epochs": n_dec, "saved_weights": aec_w,
+                         "init": "load"}, H5_PROTOCOL["dec"][1])):
+            cfg = load_config(ini(np_source, {"model": model, "mode": "train",
+                                              "tb": "True", **keys}, hp,
+                                  savepath=f"{root}/tb/Outputs"))
+            cfg.set_device(None)
+            cfg.init_exp_env()
+            [runs[model]] = workflow.train(cfg)
+        aec_tags = tb_scalars(runs["AEC"]["savepath_run"])
+        dec_tags = tb_scalars(runs["DEC"]["savepath_run"])
+        deltas = runs["DEC"]["deltas"]["iteration"]
+        print(f"h5 4m: TensorBoard AEC scalars {aec_tags}; DEC scalar tags "
+              f"{sorted(dec_tags)}, delta steps {dec_tags.get('delta')}",
+              flush=True)
+        epochs = list(range(1, n_aec + 1))
+        check(aec_tags.get("Training MSE") == epochs
+              and aec_tags.get("Validation MSE") == epochs,
+              f"AEC event steps {aec_tags}")
+        check({"Loss", "MSE", "KLD", "delta"} <= set(dec_tags)
+              and dec_tags["delta"] == deltas
+              and dec_tags["Loss"] == sorted(set(dec_tags["Loss"])),
+              f"DEC event steps {dec_tags}")
+    else:
+        kids = _child_pids()
+        _refused("run-dc with tb = True", "tensorboard",
+                 lambda: cli.run_dc(init_path=ini(
+                     np_source, {"model": "AEC", "mode": "train",
+                                 "tb": "True", "tbport": 6999,
+                                 **H5_PROTOCOL["aec"][0]},
+                     H5_PROTOCOL["aec"][1])), root)
+        check(_child_pids() == kids, "tb = True left a child process")
+
+    # (d) the checkpoint tools: export (a)'s DEC, convert it back, predict
+    ref_pt = f"{root}/reference/DEC_Params_Final.pt"
+    os.makedirs(os.path.dirname(ref_pt))
+    cli.export_torch_checkpoint(
+        [os.path.join(dec_run, "DEC_Params_Final.pt"), ref_pt])
+    sd = torch.load(ref_pt, map_location="cpu", weights_only=True)
+    want = models.DEC(H5_CLASSES, input_hw=H5_HW).state_dict()
+    check(list(sd) == list(want)
+          and all(v.dtype == torch.float64 and v.shape == want[k].shape
+                  for k, v in sd.items()),
+          "exported keys/shapes/dtypes "
+          f"{[(k, v.dtype) for k, v in sd.items()]}")
+    back = f"{root}/converted/{os.path.basename(dec_run)}"
+    os.makedirs(back)
+    cli.convert_torch_checkpoint([ref_pt, f"{back}/DEC_Params_Final.pt"])
+    cfg = cli.run_dc(init_path=ini(np_source, {
+        "model": "DEC", "mode": "predict",
+        "saved_weights": f"{back}/DEC_Params_Final.pt"}))
+    equal = {name: np.array_equal(
+        np.load(os.path.join(cfg.savepath_exp, name)),
+        np.load(os.path.join(trees["dec_predict"], name)))
+        for name in ("q_DEC.npy", "Z_DEC.npy")}
+    print(f"h5 4m: exported {len(sd)} float64 tensors at {H5_HW}; DEC "
+          f"predict from the converted file bit-equal to (a)'s: {equal}",
+          flush=True)
+    check(all(equal.values()), f"converted DEC predict {equal}")
+
+    # (e) profiling: a plain AEC epoch, then one traced, each step timed
+    x = torch.from_numpy(np.load(dump)).reshape(H5_EVENTS, *H5_HW, 1)
+    idx = configs["aec_train"].index_tra
+    x = make_normalizer("sample_norm_cent")(
+        x[torch.from_numpy(idx)].to(device))
+    batch = int(H5_PROTOCOL["aec"][1]["batch_size"])
+    data = train.make_batched_data(x, batch)
+    counts = data.counts.tolist()
+    aec = models.AEC(input_hw=H5_HW, device=device)
+    aec.load_state_dict(restore(aec_w))
+    state = train.create_train_state(aec, 1e-3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    train.train_aec(aec, state, data, None, train.AECConfig(n_epochs=1))
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    train_step, _ = train.make_step_fns(aec)
+    timer = profiling.StepTimer(warmup=1, device=device)
+    logdir = f"{root}/trace"
+    with profiling.trace(logdir, device):
+        with profiling.annotate(H5_SPAN):
+            for xb, n in zip(data.x, counts):
+                with timer:
+                    train_step(state, xb, int(n))
+    with open(os.path.join(logdir, profiling.TRACE_FILE)) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    spans = sum(1 for e in events if e.get("name") == H5_SPAN)
+    stats = timer.stats(items_per_step=batch)
+    print(f"h5 4m on {card}: AEC epoch at {H5_HW} {len(x) / epoch_s:.1f} "
+          f"samples/s ({len(x)} windows, batch {batch}, {epoch_s:.3f} s); "
+          f"traced epoch, StepTimer over {int(stats['steps'])} steps "
+          f"items_per_sec {stats['items_per_sec']:.1f} (p50 "
+          f"{stats['p50_s'] * 1e3:.3f} ms, p95 {stats['p95_s'] * 1e3:.3f} "
+          f"ms, synced each step, under the profiler); chrome trace "
+          f"{os.path.getsize(os.path.join(logdir, profiling.TRACE_FILE))} "
+          f"bytes, {kernels} CUDA kernel events, {spans} '{H5_SPAN}' spans",
+          flush=True)
+    check(kernels > 0, "no CUDA kernel events in the chrome trace")
+    check(spans >= 1, "no annotate span in the chrome trace")
+
+    launches = cuda_stft.LAUNCHES  # ... and ends here
+    print(f"h5 4m on {card}: stage walls {walls} s, load_data reads {reads} "
+          f"s, peaks {peaks} bytes; K1 launches in the phase {launches}; "
+          f"phase wall {time.perf_counter() - phase_t0:.1f} s", flush=True)
+    check(launches == 0, f"K1 launched {launches} times on the H5 route")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3032,6 +3473,9 @@ def main() -> int:
             waves_np, tmp)
         # 4l. the cluster-count diagnostics on 4c's latents
         phase_km_metrics(device, card, tmp)
+        # 4m. the RIS event catalog at (87, 100), TensorBoard, the
+        # checkpoint tools and profiling
+        phase_h5_catalog(device, card, cuda_stft, tmp, args.seed)
     max_err = max(max_err, cube_err)
     print(f"STFT kernel launches: serving path {launches}, training path "
           f"{train_launches}, workflow {wf_launches}, architectures "

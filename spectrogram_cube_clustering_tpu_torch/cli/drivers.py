@@ -10,7 +10,8 @@ items. Like the JAX drivers they leave `figures` at its default (True):
 figures, which need matplotlib and scikit-learn (`run-dc-torch` raises
 ImportError naming a missing one first). The card's machine has
 neither: there, write the ini with `figures = False` and run `run-dc-torch`.
-`--tb` raises NotImplementedError (TensorBoard, ROADMAP Queue 1 item 15).
+`--tb` starts TensorBoard on `--tbport` (through `run-dc-torch`; it needs
+tensorboard, which the card's machine lacks).
 `--device cpu` runs on the CPU; the default is the card.
 """
 
@@ -35,8 +36,8 @@ def _common(parser: argparse.ArgumentParser) -> None:
         "--project", default=".", help="project folder for Config/ + Outputs/"
     )
     parser.add_argument("--transform", default="sample_norm_cent")
-    parser.add_argument("--tb", action="store_true",
-                        help="TensorBoard (not ported: raises)")
+    parser.add_argument("--tb", action="store_true", help="start TensorBoard")
+    parser.add_argument("--tbport", type=int, default=6999)
     parser.add_argument("--verbose", action="store_true")
     parser.add_argument("--device", default=None,
                         help="'cpu', or a CUDA device index (default: the "
@@ -66,7 +67,7 @@ def _universal(args) -> dict:
 
 def _run(args, parameters, hp) -> None:
     parameters.update({"send_message": "False", "tb": str(args.tb),
-                       "show": str(args.verbose)})
+                       "tbport": args.tbport, "show": str(args.verbose)})
     ini = config_training(_universal(args), parameters, hp)
     print(f"Config written to {os.path.abspath(ini)}")
     run_dc(init_path=ini)

@@ -2,10 +2,11 @@
 (counterpart of the JAX package's `cli/run_dc.py`; reference
 Cluster/runDC:25-99).
 
-Parses the `.ini` path and a device, builds the `Configuration`, checks
-the inputs, runs train / predict / fit, and notifies on completion. The
-device is the card unless `--device cpu` (or `device = cpu` in the ini)
-asks for the CPU; `--device N` picks card N.
+Parses the `.ini` path and a device, builds the `Configuration`, starts
+TensorBoard when asked, checks the inputs, runs train / predict / fit,
+and notifies on completion. The device is the card unless `--device cpu`
+(or `device = cpu` in the ini) asks for the CPU; `--device N` picks card
+N.
 
 `figures` defaults to True, as in the JAX package: the stages then draw
 the JAX package's figures (workflow/{train,fit,predict}.py), which need
@@ -13,8 +14,11 @@ matplotlib, and scikit-learn for the t-SNE unless `tsne_backend = jax`
 selects the port's on-device one. Where one of them does not import, the
 run raises ImportError naming it before it writes anything; the card's
 machine has neither, so there the ini says `figures = False`, or
-`tsne_backend = jax` where matplotlib is installed. `tb = True` raises
-NotImplementedError (TensorBoard, ROADMAP Queue 1 item 15).
+`tsne_backend = jax` where matplotlib is installed. Likewise `tb = True`
+needs tensorboard, and `datafiletype = h5` read from the `.h5` needs
+h5py (`workflow.train.check_packages`); the card's machine has neither,
+so there the catalog is the `.npy` dump of `convert-h5-to-np-torch`
+(`h5_ftype = np`) and `tb = False`.
 
 `--mesh` (or `mesh=` a `core.mesh.DataMesh`) runs the stage data-parallel
 over a `torch.distributed` group, one process per GPU, each on its
@@ -27,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import time
 from datetime import datetime
 from typing import Optional, Union
 
@@ -34,7 +39,7 @@ from spectrogram_cube_clustering_tpu_torch import workflow
 from spectrogram_cube_clustering_tpu_torch.utils.config import Configuration
 from spectrogram_cube_clustering_tpu_torch.workflow.train import (
     check_figure_packages,
-    check_not_ported,
+    check_packages,
 )
 
 
@@ -82,18 +87,24 @@ def main(init_path: Optional[str] = None,
 
     config = Configuration(init_path).load_config()
     config.set_device(mesh.device if mesh is not None else device)
-    check_not_ported(config)
+    check_packages(config)
     figures = bool(getattr(config, "figures", True))
     if figures:
         check_figure_packages(config)
     primary = mesh is None or mesh.rank == 0
     config.init_exp_env()
+    if getattr(config, "tb", False) and primary:
+        config.start_tensorboard()
+        time.sleep(1)
     if primary:
         config.save_exp_config()
 
     tic = datetime.now()
     if config.model != "GMM" and not os.path.exists(config.fname_dataset):
         raise ValueError(f"Dataset file not found: {config.fname_dataset}")
+    indexpath = getattr(config, "indexpath", None)
+    if indexpath and not os.path.exists(indexpath):
+        raise ValueError(f"Index file not found: {indexpath}")
     if config.model in ("DEC", "GMM") or config.mode in ("predict", "fit"):
         if not os.path.exists(getattr(config, "saved_weights", "")):
             raise ValueError(

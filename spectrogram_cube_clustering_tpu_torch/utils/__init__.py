@@ -1,6 +1,10 @@
-"""Configuration, history/label CSV writers, and weights across
-frameworks."""
+"""Configuration, history/label CSV writers, weights across frameworks,
+the reference checkpoint tools (`torch_port`) and profiling."""
 
+from spectrogram_cube_clustering_tpu_torch.utils import (  # noqa: F401
+    profiling,
+    torch_port,
+)
 from spectrogram_cube_clustering_tpu_torch.utils.config import (  # noqa: F401
     Configuration,
     config_training,
@@ -18,6 +22,6 @@ from spectrogram_cube_clustering_tpu_torch.utils.weights import (  # noqa: F401
 
 __all__ = [
     "Configuration", "config_training", "load_config", "load_state_dict_file",
-    "parse_nclusters", "save_history", "save_labels",
-    "state_dict_from_jax_params",
+    "parse_nclusters", "profiling", "save_history", "save_labels",
+    "state_dict_from_jax_params", "torch_port",
 ]

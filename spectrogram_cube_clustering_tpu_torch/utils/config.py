@@ -1,7 +1,7 @@
 """Configuration: `.ini` <-> typed config, experiment trees, sweeps.
 
 A copy of the JAX package's `utils/config.py` (reference Cluster/utils.py
-`Configuration`, `config_training`), with two changes:
+`Configuration`, `config_training`), with three changes:
 
 - under a `torch.distributed` group, rank 0's serial is broadcast to
   every rank (the JAX package's `_agree_across_processes` over
@@ -9,7 +9,10 @@ A copy of the JAX package's `utils/config.py` (reference Cluster/utils.py
   directory;
 - `set_device` picks a `torch.device`: the card by default (it raises
   when there is none), the CPU or a card index when asked, by argument or
-  by a `device` key in the ini.
+  by a `device` key in the ini;
+- `start_tensorboard` first imports tensorboard (`require_tensorboard`)
+  and raises ImportError naming it where it does not import, rather than
+  start a server that dies in the background.
 
 `.ini` files hold UNIVERSAL / PARAMETERS / HYPERPARAMETERS sections; every
 HYPERPARAMETERS value parses as a comma-separated sweep list whose
@@ -27,6 +30,7 @@ import os
 import pickle
 import re
 import shutil
+import subprocess
 from datetime import datetime
 from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
 
@@ -150,6 +154,7 @@ class Configuration:
     def __init__(self, init_path: str):
         self.init_path = init_path
         self.hp: Dict[str, List[Any]] = {}
+        self.tbpid: Optional[int] = None
 
     # -- parsing ---------------------------------------------------------
 
@@ -285,6 +290,7 @@ class Configuration:
         state = {
             k: (str(v) if k == "device" else v)
             for k, v in self.__dict__.items()
+            if k != "tbpid"
         }
         with open(f"{fname}.txt", "w") as f:
             f.write(str(state))
@@ -309,6 +315,33 @@ class Configuration:
             device = f"cuda:{int(device)}"
         self.device = resolve_device(device)
         return self.device
+
+    def start_tensorboard(self) -> int:
+        """Spawn a TensorBoard server over the experiment dir
+        (utils.py:203-208); ImportError naming tensorboard, and no
+        process, where it does not import."""
+        require_tensorboard()
+        cmd = [
+            "python", "-m", "tensorboard.main", "--logdir=.",
+            f"--port={self.tbport}", "--samples_per_plugin", "images=1000",
+        ]
+        p = subprocess.Popen(cmd, cwd=self.savepath_exp)
+        self.tbpid = p.pid
+        print(
+            f"TensorBoard at http://localhost:{self.tbport}; PID={self.tbpid}"
+        )
+        return self.tbpid
+
+
+def require_tensorboard() -> None:
+    """Raise ImportError naming tensorboard where it does not import
+    (`tb = True` writes and serves its event files)."""
+    try:
+        import tensorboard  # noqa: F401
+    except ImportError as exc:
+        raise ImportError(
+            "tb = True needs tensorboard, which is not installed; install "
+            "it or set tb = False") from exc
 
 
 def config_training(

@@ -13,15 +13,20 @@ Sources (`datafiletype`):
   items (whole Zarr chunks), as the JAX package does;
 - `waveform`: a raw `.npy` through `signal.stft.spectrogram_windows` on
   `config.device`, which launches the CUDA STFT kernel on a card; the
-  split permutes windows, as the JAX package does.
+  split permutes windows, as the JAX package does;
+- `h5`: an HDF5 event catalog, one window per event, (87, 100) at the
+  RIS geometry: the `.h5` itself (`h5_ftype = h5`, the default; needs
+  h5py) or the (M, 1, H, W) dump `convert_h5_to_np` writes (`h5_ftype =
+  np`; numpy only). The split is the TraVal index pickle at `indexpath`
+  where one is configured, else the seeded 70/30 split of the windows;
+  `config.index_tra` (and `index_val`) keep the catalog rows of each part.
 
 The windows land on `config.device` (default: the card; the CPU only when asked);
 normalization comes later (`workflow.train._normalize`). The seconds the
-source read took (Zarr decode or `.npy` load and STFT, with the copy to
-the device) are kept in `config.load_seconds`. `datafiletype = h5` raises:
-it needs h5py, which the card's machine lacks (ROADMAP Queue 1 item 14).
-This loads every window whatever `loadmode` says, as the JAX package's
-does: the stages dispatch `loadmode = stream` before they load
+source read took (Zarr decode, `.npy` or `.h5` load and STFT, with the
+copy to the device) are kept in `config.load_seconds`. This loads every
+window whatever `loadmode` says, as the JAX package's does: the stages
+dispatch `loadmode = stream` before they load
 (`workflow.train._train_stream`, `workflow.predict._predict_stream`).
 """
 
@@ -78,31 +83,73 @@ def _waveform_windows(config, device: torch.device) -> torch.Tensor:
     )
 
 
+def _h5_windows(config) -> np.ndarray:
+    """The catalog's events as NHWC windows (M, H, W, 1) float32 on the
+    host, cropped, not yet normalized (the JAX package's `_h5_windows`):
+    `h5_ftype = np` loads the `convert_h5_to_np` dump as it is (already
+    cropped, and normalized at conversion), the `.h5` is read in blocks
+    of 4,096 events."""
+    if (getattr(config, "h5_ftype", None) or "h5") == "np":
+        x = np.load(config.fname_dataset)
+        if x.ndim != 4 or x.shape[1] != 1:
+            raise ValueError(
+                "h5_ftype='np' expects a (M, 1, H, W) catalog dump "
+                f"(convert_h5_to_np output); got shape {x.shape} in "
+                f"{config.fname_dataset}"
+            )
+        # one channel: NCHW -> NHWC is a reshape
+        return x.reshape(x.shape[0], x.shape[2], x.shape[3], 1).astype(
+            np.float32, copy=False)
+    from spectrogram_cube_clustering_tpu_torch.data.h5 import H5StreamDataset
+
+    ds = H5StreamDataset(config.fname_dataset, block=4096)
+    return np.concatenate([ds.item(i) for i in range(len(ds))], axis=0)
+
+
+def _h5_split(config, n: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The catalog's train/val rows: the TraVal index pickle at
+    `indexpath` (reference utils.py:173-179), else the seeded 70/30
+    split."""
+    if getattr(config, "indexpath", None):
+        from spectrogram_cube_clustering_tpu_torch.data.h5 import (
+            load_traval_index,
+        )
+
+        idx_tra, idx_val = load_traval_index(config.indexpath)
+        return np.asarray(idx_tra), np.asarray(idx_val)
+    return train_val_split(n)
+
+
+def _rows(x: torch.Tensor, idx: np.ndarray) -> torch.Tensor:
+    return x[torch.from_numpy(np.asarray(idx, np.int64)).to(x.device)]
+
+
 def load_windows(
     config, split: bool
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Windows as float32 tensors on `config.device`: (train, val or None).
     Records the window geometry in `config.input_hw` for `make_model`."""
     ftype = getattr(config, "datafiletype", None) or "zarr"
-    if ftype == "h5":
-        raise NotImplementedError(
-            "datafiletype='h5' is not ported: it needs h5py, which the "
-            "port does not use (ROADMAP Queue 1 item 14, H5 catalog)"
-        )
-    if ftype not in ("zarr", "waveform"):
+    if ftype not in ("zarr", "waveform", "h5"):
         raise ValueError(f"unknown datafiletype {ftype!r}")
     device = resolve_device(getattr(config, "device", None))
     t0 = time.perf_counter()
-    if ftype == "waveform":
-        x = _waveform_windows(config, device)
+    if ftype in ("waveform", "h5"):
+        x = (_waveform_windows(config, device) if ftype == "waveform"
+             else torch.from_numpy(_h5_windows(config)).to(device))
         _sync(device)
         config.load_seconds = time.perf_counter() - t0
         config.input_hw = (int(x.shape[1]), int(x.shape[2]))
         if not split:
+            if ftype == "h5":
+                config.index_tra = np.arange(len(x))
             return x, None
-        idx_tra, idx_val = train_val_split(len(x))
-        return (x[torch.from_numpy(idx_tra).to(device)],
-                x[torch.from_numpy(idx_val).to(device)])
+        if ftype == "waveform":
+            idx_tra, idx_val = train_val_split(len(x))
+        else:
+            idx_tra, idx_val = _h5_split(config, len(x))
+            config.index_tra, config.index_val = idx_tra, idx_val
+        return _rows(x, idx_tra), _rows(x, idx_val)
     ds = ZarrCubeDataset(config.fname_dataset, spec=_cube_spec(config))
     config.input_hw = tuple(int(v) for v in ds.window_shape[:2])
     parts = train_val_split(len(ds)) if split else (None,)

@@ -44,7 +44,6 @@ from spectrogram_cube_clustering_tpu_torch.utils.history import save_labels
 from spectrogram_cube_clustering_tpu_torch.workflow.data import load_data
 from spectrogram_cube_clustering_tpu_torch.workflow.train import (
     check_figure_packages,
-    check_not_ported,
     use_mesh,
     write_z_pointer,
 )
@@ -67,7 +66,6 @@ def gmm_fit(config, figures: bool = True, mesh=None) -> List[Dict]:
     """Run the n_clusters sweep. Returns per-run dicts of numpy labels and
     centroids. With a `mesh`, every rank of it calls this with the same
     config."""
-    check_not_ported(config)
     if figures:
         check_figure_packages(config)
     use_mesh(config, mesh)

@@ -27,8 +27,9 @@ under `T-SNE/t-SNE.png`, `Gallery/gallery.png`, `LatentSpace/latent.png`,
 initialised from where that run's artifacts are found
 (`_gmm_figure_context`), with the centroids decoded by the trained
 model's own decoder and the t-SNE of `workflow.fit._tsne`. An AEC
-predict draws nothing. The gallery's waveform rows come from an H5
-catalog only, whose source is ROADMAP Queue 1 item 14.
+predict draws nothing. The gallery's waveform rows come from an `.h5`
+catalog's `/4.0/Trace` only (`_gallery_traces`, read lazily per shown
+event); the `convert_h5_to_np` dump and the other sources carry none.
 
 `loadmode = stream` never holds the windows at once: batches stream
 through the model from the prefetch loader, q, z and labels accumulate on
@@ -79,7 +80,7 @@ from spectrogram_cube_clustering_tpu_torch.workflow.train import (
     _stream_dataset,
     _stream_loader_factory,
     check_figure_packages,
-    check_not_ported,
+    check_packages,
     load_aec_params,
     make_model,
     resolve_z_aec_path,
@@ -129,7 +130,7 @@ def predict(config, mesh=None, figures: bool = True) -> Dict:
             f"unknown model {config.model!r} for mode='predict' "
             "(GMM fitting/inference runs via mode='fit' / workflow.gmm_fit)"
         )
-    check_not_ported(config)
+    check_packages(config, tb=False)
     figures = figures and config.model == "DEC"  # an AEC predict draws none
     if figures:
         check_figure_packages(config)
@@ -217,15 +218,26 @@ def _save_predict_figures(figs: Dict, savepath: str) -> None:
 
 
 def _gallery_traces(config):
-    """The gallery's waveform rows: only an H5 event catalog carries
-    waveforms (reference plotting.py:369-380), and that source is not
-    ported; every other source has none, and the gallery leaves the row
-    out."""
-    if getattr(config, "datafiletype", None) == "h5":
-        raise NotImplementedError(
-            "the H5 catalog's waveform rows are not ported: ROADMAP Queue 1 "
-            "item 14 (H5 catalog)")
-    return None
+    """The gallery's waveform rows (the JAX package's `_gallery_traces`;
+    reference plotting.py:369-380): for an `.h5` event catalog, a lazy
+    idx -> (L,) reader of `/4.0/Trace`, so only the shown events are
+    read; None for every other source and for the `convert_h5_to_np` dump
+    (`h5_ftype = np`), which carry no waveforms, and the gallery leaves
+    the row out."""
+    if getattr(config, "datafiletype", None) != "h5":
+        return None
+    if getattr(config, "h5_ftype", "h5") == "np":
+        return None
+
+    from spectrogram_cube_clustering_tpu_torch.data import h5 as _h5
+
+    fname = config.fname_dataset
+
+    def read_trace(idx):
+        with _h5._h5py().File(fname, "r") as f:
+            return np.asarray(f[_h5.TRACE_PATH][int(idx)]).ravel()
+
+    return read_trace
 
 
 def _gmm_figure_context(config, n_clusters: int, z_dec, labels_dec,
@@ -300,11 +312,18 @@ def _draw_dec_figures(config, model, precision, x: np.ndarray,
                     facecolor="w")
     z_a, labels_a, cents_a = _gmm_figure_context(config, k, z, labels,
                                                  centroids)
+    traces = _gallery_traces(config)
+    if traces is not None and sel is not None:
+        read_trace = traces
+
+        def traces(i):  # a row of x -> its dataset row
+            return read_trace(sel[int(i)])
+
     figs = plotting.analyze_dec(
         x, z_a[rows], z[rows], labels_a[rows], labels[rows], cents_a,
         centroids, _tsne(config, z[rows]),
         centroid_decodes=_decode(model, centroids, precision),
-        traces=_gallery_traces(config),
+        traces=traces,
     )
     _save_predict_figures(figs, savepath)
 

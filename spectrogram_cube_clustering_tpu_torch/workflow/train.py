@@ -2,8 +2,8 @@
 (counterpart of the JAX package's `workflow/train.py`; reference
 Cluster/production.py:109-181, models.py:736-1268), on one device or a
 mesh (`mesh=`, a `core.mesh.DataMesh`), with `loadmode = ram` (the
-windows on the device) or `stream` (`_train_stream`: items of a Zarr cube
-or a raw waveform through `data.prefetch.PrefetchLoader`,
+windows on the device) or `stream` (`_train_stream`: items of a Zarr cube,
+a raw waveform or an H5 catalog through `data.prefetch.PrefetchLoader`,
 `stream_transfer_dtype` the wire, same artifacts):
 
 - the cartesian hp sweep with per-run dirs `Run_<hp-string>/` and `tmp/`;
@@ -21,9 +21,17 @@ or a raw waveform through `data.prefetch.PrefetchLoader`,
   parameters and statistics).
 
 Checkpoints are `.pt` files of the reference state_dict
-(`train/checkpoint.py`). Not ported, each raising `NotImplementedError`:
-TensorBoard (`tb = True`, ROADMAP Queue 1 item 15) and the H5 stream
-source (item 14).
+(`train/checkpoint.py`).
+
+TensorBoard (`tb = True`, `_tb_writer`: `torch.utils.tensorboard`, as in
+the JAX package): event files in the run dir with the AEC's "Training
+MSE" / "Validation MSE" per epoch, the DEC's "Loss", "MSE", "KLD" per
+segment and "delta" per refresh (in stream mode replayed from the
+histories, as the JAX package does), the "Reconstructions" panel where
+it is drawn, the paths of the weights as text and the DEC's hparams;
+under a mesh, rank 0's alone. `check_packages` raises ImportError naming
+tensorboard (for `tb`) or h5py (for an `.h5` catalog) before a stage
+writes anything; the card's machine has neither.
 
 Under a mesh every rank loads the same windows (a waveform through K1 on
 its own device), keeps its block of every batch (`train.layout`, or the
@@ -67,11 +75,15 @@ from spectrogram_cube_clustering_tpu_torch.core.mesh import is_primary, sync
 from spectrogram_cube_clustering_tpu_torch.core.precision import (
     precision_policy,
 )
+from spectrogram_cube_clustering_tpu_torch.data.h5 import _h5py
 from spectrogram_cube_clustering_tpu_torch.ops.normalize import make_normalizer
 from spectrogram_cube_clustering_tpu_torch.train.checkpoint import (
     check_restored_shapes,
     restore,
     save,
+)
+from spectrogram_cube_clustering_tpu_torch.utils.config import (
+    require_tensorboard,
 )
 from spectrogram_cube_clustering_tpu_torch.utils.history import save_history
 from spectrogram_cube_clustering_tpu_torch.workflow.data import (
@@ -124,12 +136,38 @@ def _seeded_model(config, n_clusters: Optional[int] = None):
                       generator=torch.Generator().manual_seed(seed))
 
 
-def check_not_ported(config) -> None:
-    """Raise NotImplementedError for an option the port does not run."""
-    if getattr(config, "tb", False):
-        raise NotImplementedError(
-            "tb=True is not ported: TensorBoard is ROADMAP Queue 1 item 15; "
-            "set tb = False")
+def check_packages(config, tb: bool = True) -> None:
+    """Raise ImportError naming a package that the options need and that
+    does not import, before the stage writes anything: h5py where an AEC
+    or DEC stage reads an `.h5` catalog (`datafiletype = h5` with
+    `h5_ftype` other than np, or in stream mode, which reads the `.h5`
+    whatever `h5_ftype` says, as in the JAX package), and, where `tb`
+    (the stages that write event files: train and run-dc), tensorboard
+    for `tb = True`."""
+    if (getattr(config, "datafiletype", None) == "h5"
+            and getattr(config, "model", None) in ("AEC", "DEC")
+            and (getattr(config, "loadmode", None) == "stream"
+                 or (getattr(config, "h5_ftype", None) or "h5") != "np")):
+        _h5py()
+    if tb and getattr(config, "tb", False):
+        require_tensorboard()
+
+
+def _tb_writer(config, logdir: str, mesh=None):
+    """(writer, log_scalar) of a `SummaryWriter` over `logdir` where `tb`,
+    on rank 0 of a mesh only (event writers of several ranks in one
+    directory tear its stream); (None, None) elsewhere."""
+    if not getattr(config, "tb", False) or not is_primary(mesh):
+        return None, None
+    require_tensorboard()
+    from torch.utils.tensorboard import SummaryWriter
+
+    writer = SummaryWriter(log_dir=logdir)
+
+    def log_scalar(tag, value, step):
+        writer.add_scalar(tag, value, step)
+
+    return writer, log_scalar
 
 
 def use_mesh(config, mesh) -> None:
@@ -165,10 +203,12 @@ def _aec_panel(config) -> bool:
     return bool(getattr(config, "figures", True))
 
 
-def _save_aec_artifacts(config, out, model, sample_x, mesh=None) -> str:
+def _save_aec_artifacts(config, out, model, sample_x, mesh=None,
+                        writer=None) -> str:
     """AEC run artifacts: history CSV, the final params and, where
     `_aec_panel`, the reconstruction panel of `sample_x` (n, H, W, 1);
-    under a mesh, rank 0's."""
+    under a mesh, rank 0's. With a TensorBoard `writer`, the panel and
+    the final params' path go to it too, and it is closed."""
     final_path = save(
         os.path.join(config.savepath_run, "AEC_Params_Final.pt"),
         out["final_params"], mesh=mesh)
@@ -198,6 +238,12 @@ def _save_aec_artifacts(config, out, model, sample_x, mesh=None) -> str:
             os.path.join(config.savepath_run, "AEC_reconstructions.png"),
             dpi=200, facecolor="w",
         )
+        if writer is not None:
+            writer.add_figure("Reconstructions", fig)
+    if writer is not None:
+        # breadcrumb (reference models.py:924)
+        writer.add_text("Path to Saved Weights", final_path)
+        writer.close()
     return final_path
 
 
@@ -292,7 +338,7 @@ def train(config, mesh=None):
             f"unknown model {config.model!r} for mode='train' "
             "(GMM fitting runs via mode='fit' / workflow.gmm_fit)"
         )
-    check_not_ported(config)
+    check_packages(config)
     if config.model == "AEC" and _aec_panel(config):
         check_figure_packages(config, tsne=False)
     stream = getattr(config, "loadmode", None) == "stream"
@@ -327,6 +373,7 @@ def _train_aec_run(config, hp, tra_x, val_x, mesh=None):
     val = (_train.make_batched_data(val_x, batch_size, mesh)
            if val_x is not None and len(val_x) else None)
     state = _train.create_train_state(model, lr, mesh)
+    writer, log_scalar = _tb_writer(config, config.savepath_run, mesh)
 
     def save_checkpoint(name, params):
         save(os.path.join(config.savepath_chkpnt, f"{name}.pt"), params,
@@ -340,6 +387,7 @@ def _train_aec_run(config, hp, tra_x, val_x, mesh=None):
             patience=int(getattr(config, "patience", 10)),
             verbose=bool(getattr(config, "show", False)),
         ),
+        log_scalar=log_scalar,
         save_checkpoint=save_checkpoint,
         # preemption-safe: a snapshot in tmp/, resumable with
         # `resume = True` in the ini
@@ -347,14 +395,18 @@ def _train_aec_run(config, hp, tra_x, val_x, mesh=None):
         resume=bool(getattr(config, "resume", False)),
         precision=_precision(config),
     )
-    _save_aec_artifacts(config, out, model, tra_x, mesh)
+    _save_aec_artifacts(config, out, model, tra_x, mesh, writer)
     out["savepath_run"] = config.savepath_run
     return out
 
 
-def _save_dec_artifacts(config, out, mesh=None) -> None:
+def _save_dec_artifacts(config, out, mesh=None, writer=None,
+                        hparams=None) -> None:
     """DEC run artifacts: initial and final params, history CSVs; under a
-    mesh, rank 0's."""
+    mesh, rank 0's. With a TensorBoard `writer`, the weights' paths as
+    text and the run's `hparams` (batch_size, lr, n_clusters, gamma, tol)
+    with its final loss, epochs and early stop (reference
+    models.py:992-998, 1213-1229), and it is closed."""
     if out["initial_params"] is not None:
         # None exactly when resuming: the original run saved the real
         # initialization (reference models.py:1009-1012)
@@ -377,6 +429,20 @@ def _save_dec_artifacts(config, out, mesh=None) -> None:
              "Delta": out["deltas"]["delta"]},
             os.path.join(config.savepath_run, "Delta_history.csv"),
         )
+    if writer is not None:
+        writer.add_text("Pretrained AEC Weights", str(config.saved_weights))
+        writer.add_text(
+            "Path to Saved Weights",
+            os.path.join(config.savepath_run, "DEC_Params_Final.pt"),
+        )
+        total = out["history"]["total"]
+        writer.add_hparams(
+            hparams,
+            {"hparam/final_loss": total[-1] if total else 0.0,
+             "hparam/epochs": out["last_epoch"],
+             "hparam/stopped_early": int(out["stopped_early"])},
+        )
+        writer.close()
 
 
 def _dec_initial(config, n_clusters: int, mesh=None):
@@ -394,6 +460,13 @@ def _dec_initial(config, n_clusters: int, mesh=None):
         _record_gmm_provenance(config, n_clusters, gmm_dir)
     sync(mesh)
     return initial
+
+
+def _dec_hparams(hp, n_clusters: int) -> dict:
+    """The DEC run's TensorBoard hparams."""
+    return {"batch_size": int(hp["batch_size"]), "lr": float(hp["lr"]),
+            "n_clusters": n_clusters, "gamma": float(hp.get("gamma", 0.001)),
+            "tol": float(hp.get("tol", 0.003))}
 
 
 def _dec_config(config, hp, n_clusters: int):
@@ -450,17 +523,20 @@ def _train_dec_run(config, hp, tra_x, mesh=None):
     # inherit the pretrained autoencoder (reference models.py:977-979)
     load_aec_params(config, model)
     state = _train.create_train_state(model, lr, mesh)
+    initial = _dec_initial(config, n_clusters, mesh)
+    writer, log_scalar = _tb_writer(config, config.savepath_run, mesh)
 
     out = _train.train_dec(
         model, state, data, _dec_config(config, hp, n_clusters),
-        initial=_dec_initial(config, n_clusters, mesh),
+        initial=initial, log_scalar=log_scalar,
         snapshot_cb=(_snapshot_figures(config, tra_x, mesh)
                      if _dec_snapshots(config) else None),
         snapshot_path=os.path.join(config.savepath_chkpnt, "SNAPSHOT"),
         resume=bool(getattr(config, "resume", False)),
         precision=_precision(config),
     )
-    _save_dec_artifacts(config, out, mesh)
+    _save_dec_artifacts(config, out, mesh, writer,
+                        _dec_hparams(hp, n_clusters))
     out["savepath_run"] = config.savepath_run
     return out
 
@@ -487,20 +563,24 @@ def _np_normalizer(config):
 
 
 def _stream_dataset(config):
-    """The item source of `loadmode = stream`: the Zarr cube (default) or
-    a memory-mapped raw waveform (`datafiletype = waveform`, host STFT per
-    block). Sets `config.input_hw` for `make_model`."""
+    """The item source of `loadmode = stream`: the Zarr cube (default), a
+    memory-mapped raw waveform (`datafiletype = waveform`, host STFT per
+    block) or the `.h5` catalog (`datafiletype = h5`, blocks of
+    `h5_stream_block` events, default 256). Sets `config.input_hw` for
+    `make_model`."""
     from spectrogram_cube_clustering_tpu_torch.data import (
         WaveformStreamDataset,
         ZarrCubeDataset,
     )
+    from spectrogram_cube_clustering_tpu_torch.data.h5 import H5StreamDataset
 
     ftype = getattr(config, "datafiletype", None) or "zarr"
     if ftype == "h5":
-        raise NotImplementedError(
-            "the H5 stream source is not ported: it needs h5py, which the "
-            "port does not use (ROADMAP Queue 1 item 14, H5 catalog)")
-    if ftype == "waveform":
+        ds = H5StreamDataset(
+            config.fname_dataset,
+            block=int(getattr(config, "h5_stream_block", None) or 256),
+        )
+    elif ftype == "waveform":
         ds = WaveformStreamDataset(
             config.fname_dataset,
             nperseg=int(getattr(config, "nperseg", None) or 200),
@@ -590,8 +670,17 @@ def _train_stream(config, mesh=None):
                 snapshot_path=snapshot, resume=resume,
                 precision=_precision(config),
             )
+            # the stream loop has no live hook: the scalars replayed from
+            # the history, as the JAX package does
+            writer, log_scalar = _tb_writer(config, config.savepath_run, mesh)
+            if log_scalar is not None:
+                h = out["history"]
+                for e, tr, va in zip(h["epoch"], h["train"], h["validation"]):
+                    log_scalar("Training MSE", tr, e)
+                    log_scalar("Validation MSE", va, e)
             _save_aec_artifacts(config, out, model,
-                                _np_normalizer(config)(ds.item(0))[:4], mesh)
+                                _np_normalizer(config)(ds.item(0))[:4], mesh,
+                                writer)
         else:
             n_clusters = int(hp.get("n_clusters",
                                     getattr(config, "n_clusters", 5)))
@@ -605,7 +694,19 @@ def _train_stream(config, mesh=None):
                 initial=initial, snapshot_path=snapshot, resume=resume,
                 precision=_precision(config),
             )
-            _save_dec_artifacts(config, out, mesh)
+            writer, log_scalar = _tb_writer(config, config.savepath_run, mesh)
+            if log_scalar is not None:
+                h = out["history"]
+                for i, t, r, c in zip(h["iteration"], h["total"],
+                                      h["reconstruction"], h["clustering"]):
+                    log_scalar("Loss", t, i)
+                    log_scalar("MSE", r, i)
+                    log_scalar("KLD", c, i)
+                for i, dl in zip(out["deltas"]["iteration"],
+                                 out["deltas"]["delta"]):
+                    log_scalar("delta", dl, i)
+            _save_dec_artifacts(config, out, mesh, writer,
+                                _dec_hparams(hp, n_clusters))
         out["savepath_run"] = config.savepath_run
         results.append(out)
     sync(mesh)

@@ -2,7 +2,9 @@
 predict and the GMM fit from the same weights and latents (the port's
 `.pt` files carried into JAX through `utils.torch_port.
 convert_checkpoint`), `build-cube` against JAX `build_cube`, the drivers'
-argparse chain, `run-dc`'s arguments, and what raises instead of running.
+argparse chain, `run-dc`'s arguments, and the options of the H5 catalog
+and TensorBoard, which run, and raise ImportError naming their package
+where it does not import.
 
 Tolerances, each stated at its test: AEC latents and reconstructions
 within 1e-5, the MSE within rtol 1e-5; DEC q within 1e-5 (the JAX and
@@ -13,8 +15,12 @@ different generators); the cube within the STFT tests' 2e-3 on log10 (the
 JAX STFT sums in float32, the port's in float64).
 """
 
+import json
 import os
+import sys
+import types
 
+import h5py
 import numpy as np
 import pandas as pd
 import pytest
@@ -27,6 +33,7 @@ from spectrogram_cube_clustering_tpu.data import CubeSpec, ZarrCubeDataset
 from spectrogram_cube_clustering_tpu.data import make_synthetic_cube
 from spectrogram_cube_clustering_tpu.utils import torch_port
 from spectrogram_cube_clustering_tpu_torch import cli, models
+from spectrogram_cube_clustering_tpu_torch.utils import config as ucfg
 from spectrogram_cube_clustering_tpu_torch.utils import config_training
 from torch_train_common import (  # noqa: F401 (fixtures)
     one_openmp_thread,
@@ -45,6 +52,23 @@ def cube(tmp_path_factory):
         path, n_time=32 * 11, n_channels=9, n_freq=101, n_classes=N_CLASSES,
         chunk_rows=32, seed=6, spec=CubeSpec(**SPEC))
     return path, labels
+
+
+@pytest.fixture(scope="module")
+def h5_catalog(tmp_path_factory):
+    """A 24-event H5 catalog of raw (88, 101) rows (row 87 the time
+    vector, column 0 the frequency vector)."""
+    path = str(tmp_path_factory.mktemp("h5") / "catalog.h5")
+    spec = np.random.default_rng(3).normal(size=(24, 88, 101))
+    spec[:, 87, 1:] = np.arange(100)
+    spec[:, 0:87, 0] = np.linspace(0, 10, 87)
+    meta = [json.dumps({"Station": "DR01"})] * 24
+    with h5py.File(path, "w") as f:
+        g = f.require_group("/4.0")
+        g.create_dataset("Spectrogram", data=spec)
+        g.create_dataset("Catalogue",
+                         data=np.array(meta, dtype=h5py.string_dtype()))
+    return path
 
 
 def _ini(root, cube_path, params, hp=None, writer=config_training):
@@ -316,36 +340,66 @@ def test_run_dc_argv_and_checks(tmp_path, cube, capsys):
     ({"loadmode": "stream", "datafiletype": "h5"}, "item 14"),
     ({"datafiletype": "h5"}, "item 14"),
 ])
-def test_not_ported_raise(tmp_path, cube, params, item):
-    """Each option the port does not run raises NotImplementedError naming
-    its ROADMAP item, before any artifact is written."""
-    ini = _ini(str(tmp_path), cube[0],
-               {"model": "AEC", "mode": "train", "n_epochs": 1, **params},
-               {"batch_size": "32", "lr": "0.001"})
-    with pytest.raises(NotImplementedError, match=item):
-        cli.run_dc(init_path=ini)
+def test_not_ported_raise(tmp_path, cube, h5_catalog, monkeypatch, params,
+                          item):
+    """Each option that ROADMAP Queue 1 item 14 (the H5 catalog) or item
+    15 (TensorBoard) ported runs through run-dc, and where its package
+    does not import raises ImportError naming it before any artifact is
+    written."""
+    package = {"item 14": "h5py", "item 15": "tensorboard"}[item]
+    if "datafiletype" in params:  # the 24-event catalog, 3 items of 8
+        source, extra = h5_catalog, {"h5_stream_block": 8, "workers": 1}
+    else:
+        source, extra = cube[0], {"tbport": 6999}
+    ini = _ini(str(tmp_path), source,
+               {"model": "AEC", "mode": "train", "n_epochs": 1, **params,
+                **extra}, {"batch_size": "8", "lr": "0.001"})
+    popen = []
+    monkeypatch.setattr(ucfg, "subprocess", types.SimpleNamespace(
+        Popen=lambda cmd, cwd=None: popen.append(cmd)
+        or types.SimpleNamespace(pid=1)))
+    with monkeypatch.context() as m:
+        m.setitem(sys.modules, package, None)
+        with pytest.raises(ImportError, match=package):
+            cli.run_dc(init_path=ini)
+    assert not os.path.exists(tmp_path / "Outputs") and popen == []
+    config = cli.run_dc(init_path=ini)
+    [run] = [d for d in os.listdir(config.savepath_exp)
+             if d.startswith("Run_")]
+    files = os.listdir(os.path.join(config.savepath_exp, run))
+    assert "AEC_Params_Final.pt" in files
+    if package == "tensorboard":
+        assert len(popen) == 1
+        assert any(f.startswith("events.out.tfevents") for f in files)
+    else:
+        assert tuple(config.input_hw) == (87, 100)
 
 
-def test_library_not_ported_raise(tmp_path):
-    """Under a mesh (ported: tests/test_torch_sharding.py) the library
-    stages still raise for `tb`, the option the port does not run, with
-    figures on or off (the figures run: tests/test_torch_figures.py; the
-    cluster-count diagnostics too: tests/test_torch_km_metrics.py), and
-    refuse a mesh on another device than the ini's."""
+def test_library_not_ported_raise(tmp_path, monkeypatch):
+    """Under a mesh (ported: tests/test_torch_sharding.py) the library's
+    train stage runs `tb` (TensorBoard, ROADMAP Queue 1 item 15:
+    tests/test_torch_tb.py, where only rank 0 of a gloo mesh writes), and
+    where tensorboard does not import it raises ImportError naming it
+    before anything is written, with figures on or off (the figures run:
+    tests/test_torch_figures.py; the cluster-count diagnostics too:
+    tests/test_torch_km_metrics.py); and every stage refuses a mesh on
+    another device than the ini's."""
     from spectrogram_cube_clustering_tpu_torch import workflow
     from spectrogram_cube_clustering_tpu_torch.core.mesh import DataMesh
     from spectrogram_cube_clustering_tpu_torch.utils import load_config
 
     mesh = DataMesh(rank=0, world=2, device=torch.device("cpu"))
     for figures in ("True", "False"):
-        for option, item in (("tb", "item 15"),):
+        for option, package in (("tb", "tensorboard"),):
             ini = _ini(str(tmp_path), "unused",
                        {"model": "DEC", "mode": "train", "figures": figures,
                         option: "True"})
             cfg = load_config(ini)
-            for stage in (workflow.train, workflow.predict, workflow.gmm_fit):
-                with pytest.raises(NotImplementedError, match=item):
-                    stage(cfg, mesh=mesh)
+            with monkeypatch.context() as m:
+                m.setitem(sys.modules, package, None)
+                with pytest.raises(ImportError, match=package):
+                    workflow.train(cfg, mesh=mesh)
+    assert not os.path.exists(tmp_path / "Outputs")
     ini = _ini(str(tmp_path), "unused", {"model": "DEC", "mode": "train",
                                          "figures": "False"})
     cfg = load_config(ini)

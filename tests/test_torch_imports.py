@@ -50,6 +50,7 @@ for sub in ("cli", "cli.run_dc", "cli.drivers", "cli.tools",
             "models.layers", "utils.weights", "analysis.plotting",
             "cluster.tsne", "cluster.tsne_torch", "utils.mathutils",
             "core.mesh", "parallel", "parallel.cluster", "parallel.halo",
+            "utils.torch_port", "utils.profiling",
             "train.layout", "train.state", "serve", "serve_http"):
     assert pkg.__name__ + "." + sub in names, sub
 import chip_smoke  # noqa: F401

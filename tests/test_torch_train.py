@@ -7,6 +7,7 @@ JAX params carried over by `utils.weights.state_dict_from_jax_params`)
 and take the same numpy inputs.
 """
 
+import sys
 import types
 
 import jax
@@ -276,7 +277,7 @@ def test_make_model_matches_jax(model, hw, faithful):
         k: tuple(v.shape) for k, v in want.items()}
 
 
-# ---- what is not ported yet raises -----------------------------------------
+# ---- what raises: a refused layout, the .h5 without h5py ------------------
 
 
 def _not_ported_calls():
@@ -297,13 +298,29 @@ def _not_ported_calls():
     return {
         "layout_mesh": (lambda: train.make_batched_data(x, 3, mesh=mesh),
                         ValueError, "divide evenly"),
-        "h5": (lambda: windows(datafiletype="h5"), NotImplementedError,
-               "item 14"),
-        "stream": (lambda: _stream_dataset(
+        # the H5 catalog (ROADMAP Queue 1 item 14) runs:
+        # tests/test_torch_h5_workflow.py; its `.h5` reads need h5py
+        "h5": (lambda: _without("h5py", lambda: windows(datafiletype="h5",
+                                                         device="cpu")),
+               ImportError, "h5py"),
+        "stream": (lambda: _without("h5py", lambda: _stream_dataset(
             types.SimpleNamespace(datafiletype="h5", loadmode="stream",
-                                  fname_dataset="unused.h5")),
-                   NotImplementedError, "item 14"),
+                                  fname_dataset="unused.h5"))),
+                   ImportError, "h5py"),
     }
+
+
+def _without(package: str, call):
+    """call() with `package` unimportable."""
+    saved = sys.modules.get(package)
+    sys.modules[package] = None
+    try:
+        return call()
+    finally:
+        if saved is None:
+            del sys.modules[package]
+        else:
+            sys.modules[package] = saved
 
 
 @pytest.mark.parametrize("name", sorted(_not_ported_calls()))
