@@ -256,6 +256,34 @@ the script exits non-zero:
    events and the `annotate` span, and a `StepTimer` over its steps gives
    items_per_sec, printed beside a plain epoch's samples/s. Prints the
    stage walls, peaks and samples/s;
+4n. native host code (`native/`: the C++ Zarr chunk decoder and int8
+   quantizer, built by g++ from the checkout in phase 2, no fallback;
+   no kernel, K1 is not launched) and the host analysis layer: (a) the
+   build's seconds, the host's CPU model and os.cpu_count(); (b) 4c's
+   cube rewritten in 60-row chunks (the reference's
+   Cube_chunked_60.zarr), read whole through the native batch path
+   bit-equal to the per-chunk Python path (decode_chunks must run; both
+   paths' seconds and decoded MB/s printed), `ZarrCubeDataset
+   .load_all_windows` on it bit-equal to 4c's windows, the decoder's
+   seconds with its default thread count and with one thread, and one
+   stream epoch of 4g's loader over it on the int8 wire, which must call
+   the native decoder and must not call the native quantizer (the wire
+   encodes with the torch expression), and the loader's windows/s on
+   float32 and int8 with the native decoder and with the per-chunk path,
+   in turns; 4g's int8 loader over 4c's cube with the torch expression
+   and with the native quantizer routed in as the JAX package routes it,
+   in turns;
+   (c) the repo's blosc fixture (blosc-lz4, shuffle) through
+   `decode_chunks` and frame by frame through the from-scratch parser,
+   both equal to its expected array;
+   (d) `native.quantize_int8` on (b)'s normalized windows in batches of
+   64, bit-equal to the torch expression; (e) a `sacio` SAC and miniSEED
+   round trip and `seismic.remove_response_native` on a RESP the phase
+   writes, each equal to the CPU's stored values (SHA-256 of the bytes;
+   the removal within rtol 1e-10), with no jax or obspy imported; where
+   pandas does not import, `LabelCatalogue` and `measure_label_change`,
+   and where matplotlib does not, each new figure, must raise
+   ImportError naming it and leave the tree as it was;
 5. times: kernel, plain STFT and the library call (`torch.stft` in
    float64, |.|^2, log10) at (16, 2^20) with CUDA events, the kernel's
    bound (an FFT's FP64 operations and the HBM bytes at the H100 SXM
@@ -3025,7 +3053,8 @@ def _child_pids() -> set:
     return kids
 
 
-def _refused(what: str, package: str, fn, tree_root: str) -> str:
+def _refused(what: str, package: str, fn, tree_root: str,
+             phase: str = "h5 4m") -> str:
     """Call fn, which must raise ImportError naming `package` and leave
     `tree_root` as it was; returns the message."""
     before = _tree_with_dirs(tree_root)
@@ -3036,7 +3065,7 @@ def _refused(what: str, package: str, fn, tree_root: str) -> str:
     else:
         said = None
     unchanged = _tree_with_dirs(tree_root) == before
-    print(f"h5 4m: without {package}, {what} raised ImportError {said!r}; "
+    print(f"{phase}: without {package}, {what} raised ImportError {said!r}; "
           f"the tree unchanged {unchanged}", flush=True)
     check(said is not None and package in said,
           f"{what} without {package}: {said}")
@@ -3297,6 +3326,443 @@ def phase_h5_catalog(device, card: str, cuda_stft, tmp: str,
     check(launches == 0, f"K1 launched {launches} times on the H5 route")
 
 
+#: 4n: the reference's second cube layout, `Cube_chunked_60.zarr`
+#: (SURVEY.md:247, ZarrDataLoader.py:97): 60-row chunks, so each 5,758-row
+#: item of a channel spans ~96 chunk files
+CHUNK60 = 60
+#: 4n (e): a RESP of one pole-zero stage and one FIR stage (the layout
+#: of tests/test_seismic.py's RESP_PAZ_FIR_TEXT), written by the phase
+NATIVE_RESP = """\
+B050F03     Station:     KPDR
+B050F16     Network:     KP
+B052F03     Location:    ??
+B052F04     Channel:     HDH
+B052F22     Start date:  2014,001,00:00:00
+B052F23     End date:    2016,366,23:59:59
+B057F04     Input sample rate (hz):        200.0
+B057F05     Decimation factor:      1
+B058F04     Sensitivity:    5.24814E+08
+B058F05     Frequency of sensitivity:  0.02 HZ
+B053F03     Transfer function type:                A
+B053F04     Stage sequence number:                 1
+B053F05     Response in units lookup:              M/S - Velocity in Meters Per Second
+B053F06     Response out units lookup:             V - Volts
+B053F07     A0 normalization factor:               2.0
+B053F08     Normalization frequency:               0.02
+B053F09     Number of zeroes:                      2
+B053F14     Number of poles:                       2
+B053F10-13     0  +0.00000E+00  +0.00000E+00  +0.00000E+00  +0.00000E+00
+B053F10-13     1  +0.00000E+00  +0.00000E+00  +0.00000E+00  +0.00000E+00
+B053F15-18     0  -2.00000E+00  +2.00000E+00  +0.00000E+00  +0.00000E+00
+B053F15-18     1  -2.00000E+00  -2.00000E+00  +0.00000E+00  +0.00000E+00
+B054F03     Transfer function type:                D
+B054F04     Stage sequence number:                 2
+B054F05     Response in units lookup:              V - Volts
+B054F06     Response out units lookup:             COUNTS - Digital Counts
+B054F07     Number of numerators:                  3
+B054F10     Number of denominators:                0
+B054F08-09     0  +2.50000E-01  +0.00000E+00
+B054F08-09     1  +5.00000E-01  +0.00000E+00
+B054F08-09     2  +2.50000E-01  +0.00000E+00
+B057F03     Stage sequence number:                 2
+B057F04     Input sample rate (HZ):                200.0
+B057F05     Decimation factor:                     1
+B057F06     Decimation offset:                     0
+B057F07     Estimated delay (seconds):             +5.00000E-03
+B057F08     Correction applied (seconds):          +5.00000E-03
+"""
+#: 4n (e): what `native_analysis_values` gives on a CPU (numpy 2.0.2,
+#: scipy 1.17.0): the SHA-256 of the SAC and miniSEED bytes
+#: of its trace, and the response removal's samples at NATIVE_PICKS and
+#: its L2 norm, held within NATIVE_RESP_RTOL of the largest pick and of
+#: the norm (tests/test_seismic.py's removal tolerance; the FFTs of
+#: another numpy may round otherwise)
+NATIVE_SAC_SHA256 = (
+    "8fc3cfcbcfac3a95078c82b140a0cac2183cada3adc098f1852da23f361f218c")
+NATIVE_MSEED_SHA256 = (
+    "dfefcd1182de8c01254e4a87852b454f715a8087c9d9a4e04e281058fb44a8f5")
+NATIVE_PICKS = (0, 1000, 2048, 3071, 4095)
+NATIVE_REMOVED = (-6.3533164313580855e-06, 2.5085724607648394e-05,
+                  6.845954424185163e-06, 1.7276298028569002e-05,
+                  1.0928709572100778e-05)
+NATIVE_REMOVED_NORM = 0.0018100289449772915
+NATIVE_RESP_RTOL = 1e-10
+
+
+def native_analysis_values(root: str) -> dict:
+    """4n (e): a trace of exact samples (integers over 7: no generator and
+    no libm, so every numpy writes the same bytes) written as SAC and as
+    miniSEED by the port's `analysis.sacio` and read back, and its
+    samples as counts through `seismic.remove_response_native` of
+    NATIVE_RESP (displacement, a pre-filter). Returns the bytes' SHA-256,
+    whether each read back equal, and the removal's picks and norm."""
+    import hashlib
+    from datetime import datetime
+
+    from spectrogram_cube_clustering_tpu_torch.analysis import sacio, seismic
+
+    n = 4096
+    data = ((np.arange(n) * 7919) % 2003 - 1001).astype(np.float64) / 7.0
+    stats = dict(network="KP", station="KPDR", location="", channel="HDH",
+                 starttime=datetime(2015, 6, 1, 0, 0, 0, 250000),
+                 sampling_rate=20.0, npts=n)
+    out = {}
+    for fmt, write, read in (("sac", sacio.write_sac, sacio.read_sac),
+                             ("mseed", sacio.write_mseed, sacio.read_mseed)):
+        path = os.path.join(root, f"trace.{fmt}")
+        write(path, sacio.Trace(data.copy(), sacio.Stats(**stats)))
+        with open(path, "rb") as fh:
+            out[f"{fmt}_sha256"] = hashlib.sha256(fh.read()).hexdigest()
+        back = read(path)
+        out[f"{fmt}_read_back"] = bool(
+            np.array_equal(back.data, data.astype(np.float32))
+            and back.stats.starttime == stats["starttime"]
+            and back.stats.npts == n)
+    resp = os.path.join(root, "RESP.KP.KPDR..HDH")
+    with open(resp, "w") as fh:
+        fh.write(NATIVE_RESP)
+    removed = seismic.remove_response_native(
+        data * 1e3, 20.0, resp, units="DISP",
+        pre_filt=(0.005, 0.01, 4.0, 8.0))
+    out["removed"] = [float(removed[i]) for i in NATIVE_PICKS]
+    out["removed_norm"] = float(np.linalg.norm(removed))
+    return out
+
+
+def read_per_chunk(arr) -> np.ndarray:
+    """A Zarr array whole through its plain Python path: `_decode_chunk`
+    of every chunk, one at a time."""
+    out = np.empty(arr.shape, arr.dtype)
+    grid = [-(-s // c) for s, c in zip(arr.shape, arr.chunks)]
+    for cid in np.ndindex(*grid):
+        sel = tuple(slice(i * c, min((i + 1) * c, s))
+                    for i, c, s in zip(cid, arr.chunks, arr.shape))
+        out[sel] = arr._decode_chunk(cid)[
+            tuple(slice(0, s.stop - s.start) for s in sel)]
+    return out
+
+
+def phase_native(device, card: str, tmp: str, sources: dict,
+                 build_s: float) -> None:
+    """4n: the native chunk decoder and int8 quantizer (`native/`, built by
+    g++ from the checkout's source in phase 2) and the host analysis layer:
+    (a) the build and the host; (b) 4c's cube rewritten in 60-row chunks,
+    read whole through the native batch path against the per-chunk Python
+    path, its windows against 4c's, one stream epoch over it; (c) the
+    blosc fixture; (d) the int8 wire on 4g's batches; (e) `sacio` and
+    `seismic` against the CPU's values, and the catalogues,
+    `measure_label_change` and the new figures without pandas and
+    matplotlib."""
+    import contextlib
+    import importlib.util
+    import platform
+    import types
+    import unittest.mock
+
+    from spectrogram_cube_clustering_tpu_torch import native
+    from spectrogram_cube_clustering_tpu_torch.analysis import (
+        catalogue,
+        plotting,
+    )
+    from spectrogram_cube_clustering_tpu_torch.core.precision import (
+        quantize_tensor,
+        quantize_wire,
+    )
+    from spectrogram_cube_clustering_tpu_torch.data import (
+        ZarrCubeDataset,
+        prefetch,
+        zarrlite,
+    )
+    from spectrogram_cube_clustering_tpu_torch.utils import (
+        measure_label_change,
+    )
+    from spectrogram_cube_clustering_tpu_torch.workflow.data import (
+        _cube_spec,
+    )
+    from spectrogram_cube_clustering_tpu_torch.workflow.train import (
+        _np_normalizer,
+    )
+
+    phase_t0 = time.perf_counter()
+    # (a) the library phase 2 built, and the host that runs it
+    try:
+        with open("/proc/cpuinfo") as fh:
+            cpuinfo = fh.read()
+    except OSError:
+        cpuinfo = ""
+    model = next((line.split(":", 1)[1].strip()
+                  for line in cpuinfo.splitlines()
+                  if line.startswith("model name")),
+                 platform.processor() or "unknown")
+    avx2 = " avx2" in cpuinfo
+    lib = native.library_path()
+    print(f"native 4n: {lib.name} built by g++ from "
+          f"{os.path.relpath(native.SOURCE)} in {build_s:.2f} s; host CPU "
+          f"{model!r}, os.cpu_count() {os.cpu_count()}, avx2 {avx2}; "
+          f"decode threads a call {min(os.cpu_count() or 1, 16)}, quantize "
+          f"threads {min(os.cpu_count() or 1, 8)}", flush=True)
+    check(lib.exists(), f"native library {lib} missing")
+
+    # (b) 4c's cube in 60-row chunks
+    universal = dict(sources["zarr"][0])
+    src = zarrlite.open_group(universal["fname_dataset"])["cube"]
+    cube = src[:]
+    root60 = f"{tmp}/cube_60.zarr"
+    t0 = time.perf_counter()
+    zarrlite.write_group(root60, {"cube": cube},
+                         chunks=(CHUNK60, 1, cube.shape[2]),
+                         compressor="zlib")
+    write_s = time.perf_counter() - t0
+    arr60 = zarrlite.open_group(root60)["cube"]
+    n_chunks = int(np.prod([-(-s // c) for s, c in zip(arr60.shape,
+                                                       arr60.chunks)]))
+    decoded_mb = n_chunks * int(np.prod(arr60.chunks)) * 4 / 1e6
+    calls = native.CALLS["decode_chunks"]
+    t0 = time.perf_counter()
+    fast = zarrlite.open_group(root60)["cube"][:]
+    native_s = time.perf_counter() - t0
+    native_calls = native.CALLS["decode_chunks"] - calls
+    t0 = time.perf_counter()
+    plain = read_per_chunk(arr60)
+    plain_s = time.perf_counter() - t0
+    same = fast.tobytes() == plain.tobytes()
+    print(f"native 4n (b): 4c's cube {cube.shape} rewritten in "
+          f"{arr60.chunks} chunks ({n_chunks} files, zlib) in {write_s:.3f} "
+          f"s; read whole: native batch path {native_s:.3f} s "
+          f"({decoded_mb / native_s:.1f} MB/s decoded, {native_calls} "
+          f"decode_chunks calls), per-chunk Python path {plain_s:.3f} s "
+          f"({decoded_mb / plain_s:.1f} MB/s); bit-equal {same}, equal to "
+          f"the cube {np.array_equal(fast, cube)}", flush=True)
+    check(same and np.array_equal(fast, cube),
+          "60-row cube: native read != per-chunk read")
+    check(native_calls >= 1, "60-row cube read without the native decoder")
+    # the decoder's thread count (JAX's: one a core up to 16) against one
+    paths = [arr60._chunk_path(list(i)) for i in np.ndindex(
+        *[-(-s // c) for s, c in zip(arr60.shape, arr60.chunks)])]
+    thread_s, first = {}, None
+    for n_threads in (None, 1, None, 1):
+        t0 = time.perf_counter()
+        pooled = native.decode_chunks(paths, arr60.chunks, arr60.dtype,
+                                      "zlib", n_threads=n_threads)
+        thread_s.setdefault(n_threads or "default", []).append(
+            round(time.perf_counter() - t0, 3))
+        first = pooled.tobytes() if first is None else first
+        check(pooled.tobytes() == first,
+              f"decode_chunks with n_threads={n_threads}")
+    print(f"native 4n (b): decode_chunks of the {len(paths)} files, s, "
+          f"default ({min(os.cpu_count() or 1, 16)} threads) against 1 "
+          f"thread, in turns: {thread_s}", flush=True)
+    del cube, fast, plain, pooled, first
+
+    spec = _cube_spec(types.SimpleNamespace(**universal))
+    want = ZarrCubeDataset(universal["fname_dataset"], spec=spec
+                           ).load_all_windows()
+    calls = native.CALLS["decode_chunks"]
+    t0 = time.perf_counter()
+    got = ZarrCubeDataset(root60, spec=spec).load_all_windows()
+    windows_s = time.perf_counter() - t0
+    windows_calls = native.CALLS["decode_chunks"] - calls
+    print(f"native 4n (b): load_all_windows on the 60-row cube {got.shape} "
+          f"in {windows_s:.3f} s ({windows_calls} decode_chunks calls), "
+          f"bit-equal to 4c's {got.tobytes() == want.tobytes()}", flush=True)
+    check(got.tobytes() == want.tobytes(), "60-row cube windows != 4c's")
+    check(windows_calls >= 1, "60-row windows without the native decoder")
+
+    universal60 = dict(universal, fname_dataset=root60)
+    before = dict(native.CALLS)
+    rate = loader_rate(device, universal60, "int8")
+    epoch_calls = {k: native.CALLS[k] - before[k] for k in before}
+    print(f"native 4n (b): one stream epoch ({STREAM_KEYS['workers']} loader "
+          f"workers, int8 wire) over the 60-row cube at {rate:.1f} windows/s "
+          f"to the card; native calls {epoch_calls}", flush=True)
+    check(epoch_calls["decode_chunks"] >= 1,
+          "the stream epoch read without the native decoder")
+    check(epoch_calls["quantize_int8"] == 0,
+          "the int8 stream epoch encoded with the native quantizer")
+    # the loader's rate with and without the native decoder, in turns:
+    # with `decode_chunks` declining, zarrlite decodes chunk by chunk (the
+    # port before 4n)
+    rates = {}
+    for turn in ("native", "plain", "plain", "native"):
+        for wire in (None, "int8"):
+            with contextlib.ExitStack() as stack:
+                if turn == "plain":
+                    stack.enter_context(unittest.mock.patch.object(
+                        native, "decode_chunks", lambda *a, **k: None))
+                rates.setdefault((turn, wire or "float32"), []).append(
+                    round(loader_rate(device, universal60, wire), 1))
+    print(f"native 4n (b): stream loader over the 60-row cube, windows/s "
+          f"to the card, in turns native, plain, plain, native: "
+          f"{ {f'{t} {w}': r for (t, w), r in rates.items()} }", flush=True)
+
+    # 4g's int8 loader over 4c's cube (5,758-row items) with the wire's
+    # torch expression and with the native quantizer routed in as the JAX
+    # package routes a float32 batch, in turns (ROADMAP item 24)
+    def jax_route(batch, wire):
+        if wire == torch.int8 and isinstance(batch, np.ndarray) \
+                and batch.dtype == np.float32:
+            got = native.quantize_int8(np.ascontiguousarray(batch))
+            if got is not None:
+                return {"q": torch.from_numpy(got[0]),
+                        "scale": torch.from_numpy(got[1])}
+        return quantize_wire(batch, wire)
+
+    int8_rates = {}
+    for turn in ("torch", "native", "native", "torch"):
+        before = native.CALLS["quantize_int8"]
+        with contextlib.ExitStack() as stack:
+            if turn == "native":
+                stack.enter_context(unittest.mock.patch.object(
+                    prefetch, "quantize_wire", jax_route))
+            int8_rates.setdefault(turn, []).append(
+                round(loader_rate(device, universal, "int8"), 1))
+        routed = native.CALLS["quantize_int8"] - before
+        check((routed > 0) == (turn == "native"),
+              f"4g's int8 loader, {turn} turn: {routed} quantize_int8 calls")
+    print(f"native 4n (b): 4g's int8 loader over 4c's cube, windows/s to "
+          f"the card, the torch expression against the native quantizer "
+          f"(up to {min(os.cpu_count() or 1, 8)} threads a call), in turns "
+          f"torch, native, native, torch: {int8_rates}", flush=True)
+
+    # (c) the blosc fixture (blosc-lz4, shuffle 1): the thread pool and the
+    # from-scratch parser frame by frame
+    fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tests", "fixtures")
+    fixture = zarrlite.open_group(
+        os.path.join(fixtures, "blosc_store"))["cube"]
+    expected = np.load(os.path.join(fixtures, "blosc_store_expected.npy"))
+    ids = [list(i) for i in np.ndindex(*[-(-s // c) for s, c in zip(
+        fixture.shape, fixture.chunks)])]
+    pooled = native.decode_chunks([fixture._chunk_path(i) for i in ids],
+                                  fixture.chunks, fixture.dtype, "blosc")
+    nbytes = int(np.prod(fixture.chunks)) * fixture.dtype.itemsize
+    frames = []
+    for i in ids:
+        with open(fixture._chunk_path(i), "rb") as fh:
+            frames.append(native.blosc_decompress(fh.read(), nbytes,
+                                                  force_own=True))
+    own = np.frombuffer(b"".join(frames), fixture.dtype).reshape(
+        expected.shape)
+    pooled = pooled.reshape(expected.shape)
+    print(f"native 4n (c): blosc fixture {expected.shape} in "
+          f"{fixture.chunks} chunks: decode_chunks equal "
+          f"{np.array_equal(pooled, expected)}, blosc_decompress(force_own) "
+          f"equal {np.array_equal(own, expected)}", flush=True)
+    check(np.array_equal(pooled, expected), "blosc fixture via decode_chunks")
+    check(np.array_equal(own, expected), "blosc fixture via the own parser")
+
+    # (d) the int8 wire on 4g's batches: the 60-row cube's normalized
+    # windows in the loader's batches of 64
+    normalize = _np_normalizer(types.SimpleNamespace(
+        transform="sample_norm_cent"))
+    windows = normalize(got)
+    batches = [np.ascontiguousarray(windows[i:i + 64])
+               for i in range(0, len(windows), 64)]
+    check(all(np.isfinite(b).all() for b in batches), "non-finite batches")
+    t0 = time.perf_counter()
+    fast = [native.quantize_int8(b) for b in batches]
+    quant_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = [quantize_tensor(torch.from_numpy(b), torch.int8)
+             for b in batches]
+    torch_s = time.perf_counter() - t0
+    same = all(np.array_equal(f[0], p["q"].numpy())
+               and np.array_equal(f[1], p["scale"].numpy())
+               for f, p in zip(fast, plain))
+    print(f"native 4n (d): int8 wire over {len(batches)} batches "
+          f"{batches[0].shape}: quantize_int8 {quant_s:.3f} s, the torch "
+          f"expression on the host {torch_s:.3f} s; codes and scales "
+          f"bit-equal {same}", flush=True)
+    check(same, "native int8 quantizer != the torch expression")
+
+    # (e) host analysis: no jax, pandas, obspy or matplotlib
+    root = f"{tmp}/native_4n"
+    os.makedirs(root, exist_ok=True)
+    values = native_analysis_values(root)
+    removed_err = max(
+        max(abs(g - w) for g, w in zip(values["removed"], NATIVE_REMOVED))
+        / max(abs(w) for w in NATIVE_REMOVED),
+        abs(values["removed_norm"] - NATIVE_REMOVED_NORM)
+        / NATIVE_REMOVED_NORM)
+    print(f"native 4n (e): sacio SAC sha256 {values['sac_sha256']} (the "
+          f"CPU's: {values['sac_sha256'] == NATIVE_SAC_SHA256}), read back "
+          f"{values['sac_read_back']}; miniSEED sha256 "
+          f"{values['mseed_sha256']} (the CPU's: "
+          f"{values['mseed_sha256'] == NATIVE_MSEED_SHA256}), read back "
+          f"{values['mseed_read_back']}; remove_response_native picks "
+          f"{values['removed']}, norm {values['removed_norm']!r}, largest "
+          f"relative gap to the CPU's {removed_err:.3e} (bound "
+          f"{NATIVE_RESP_RTOL})", flush=True)
+    check(values["sac_sha256"] == NATIVE_SAC_SHA256
+          and values["sac_read_back"], "sacio SAC round trip")
+    check(values["mseed_sha256"] == NATIVE_MSEED_SHA256
+          and values["mseed_read_back"], "sacio miniSEED round trip")
+    check(removed_err <= NATIVE_RESP_RTOL,
+          f"remove_response_native {removed_err} from the CPU's")
+    for name in ("jax", "obspy"):
+        check(name not in sys.modules, f"{name} imported on the host path")
+
+    det, lab = f"{root}/det.csv", f"{root}/lab.csv"
+    with open(det, "w") as fh:
+        fh.write("network,station,dt_peak,peak,unit,idx\n")
+        for i in range(12):
+            fh.write(f"XH,DR0{i % 2 + 1},2015-0{i % 9 + 1}-02 00:00:00,"
+                     f"{1 + i / 10},m/s,{i}\n")
+    with open(lab, "w") as fh:
+        fh.write("label\n" + "".join(f"{i % 3}\n" for i in range(12)))
+    pandas_calls = {
+        "LabelCatalogue": lambda: catalogue.LabelCatalogue([det, lab]).df,
+        "EnvironmentCatalogue": lambda: catalogue.EnvironmentCatalogue(
+            "DR02", "AWS01", root).df,
+        "measure_label_change": lambda: measure_label_change(
+            np.arange(12) % 3, np.arange(12) % 4),
+    }
+    x = windows[:5, :, :, :1]
+    z = np.random.default_rng(0).normal(size=(30, 9))
+    labels, cents = np.arange(30) % 3, z[:3]
+    figures = {
+        "view_history_aec": lambda: plotting.view_history_aec(
+            {"epoch": [1, 2], "train": [1.0, 0.5], "validation": [1, 0.6]}),
+        "view_history_dec": lambda: plotting.view_history_dec(
+            {"iteration": [0, 1], "total": [2, 1], "reconstruction": [1, 1],
+             "clustering": [1, 0]}),
+        "view_centroid_output": lambda: plotting.view_centroid_output(x),
+        "view_class_pdf_single": lambda: plotting.view_class_pdf_single(
+            z, labels, cents),
+        "view_class_pdf": lambda: plotting.view_class_pdf(z, labels, cents),
+        "view_dec_output": lambda: plotting.view_dec_output(
+            x[0], 1, x[1], z[0]),
+        "compare_silhscore": lambda: plotting.compare_silhscore(
+            z[:, 0] / 4, z[:, 1] / 4, labels, 3),
+        "centroid_dashboard": lambda: plotting.centroid_dashboard(
+            z, labels, cents),
+        "view_specgram": lambda: plotting.view_specgram(x[0]),
+        "view_detections": lambda: plotting.view_detections(
+            f"{root}/none.h5", [0]),
+        "view_series": lambda: plotting.view_series(
+            "DR02", "AWS01", root, det, lab),
+        "compare_images": lambda: plotting.compare_images(x, x[::-1]),
+        "centroid_distances": lambda: plotting.centroid_distances(
+            z, labels, cents),
+    }
+    for package, calls in (("pandas", pandas_calls),
+                           ("matplotlib", figures)):
+        if importlib.util.find_spec(package) is None:
+            for what, fn in calls.items():
+                _refused(what, package, fn, root, "native 4n (e)")
+        else:
+            version = getattr(importlib.import_module(package),
+                              "__version__", "?")
+            print(f"native 4n (e): {package} {version} imports here; its "
+                  f"calls run: {sorted(calls)}", flush=True)
+            for what, fn in calls.items():
+                if what not in ("EnvironmentCatalogue", "view_detections",
+                                "view_series"):  # no such files here
+                    check(fn() is not None, f"{what} with {package}")
+    print(f"native 4n on {card}: native calls {native.CALLS}; phase wall "
+          f"{time.perf_counter() - phase_t0:.1f} s", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3358,6 +3824,15 @@ def main() -> int:
         check(len(found) == 6 and all(h and not d for h, d in found.values()),
               f"{kernel} HMMA {found}")
     check(not any("stft_mma_kernel" in k for k in dmma), "wmma kernel gone")
+    # the native chunk decoder and int8 quantizer (host C++, g++): built
+    # here from the checkout's source, before the phases that read Zarr
+    from spectrogram_cube_clustering_tpu_torch import native
+
+    t0 = time.perf_counter()
+    native.load()
+    native_build_s = time.perf_counter() - t0
+    print(f"build: native {native_build_s:.2f} s "
+          f"({native.library_path().name})", flush=True)
 
     # 3. kernel against plain
     gen = torch.Generator(device=device).manual_seed(args.seed)
@@ -3476,6 +3951,9 @@ def main() -> int:
         # 4m. the RIS event catalog at (87, 100), TensorBoard, the
         # checkpoint tools and profiling
         phase_h5_catalog(device, card, cuda_stft, tmp, args.seed)
+        # 4n. the native Zarr decoder and int8 quantizer on 4c's cube in
+        # 60-row chunks, and the host analysis layer
+        phase_native(device, card, tmp, sources, native_build_s)
     max_err = max(max_err, cube_err)
     print(f"STFT kernel launches: serving path {launches}, training path "
           f"{train_launches}, workflow {wf_launches}, architectures "

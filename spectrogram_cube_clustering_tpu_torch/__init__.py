@@ -20,10 +20,15 @@ cluster   : batched k-means restarts, full-covariance GMM-EM, silhouettes
             and per-class metrics
 parallel  : the halo exchange and time-sharded STFT, k-means / GMM-EM
             with their statistics summed over a mesh
-data      : the Zarr reader/writer, the cube window dataset, the split
+data      : the Zarr reader/writer (chunks decoded by `native`), the cube
+            window dataset, the split
 workflow  : the train / fit / predict stages from a config, Zarr-cube or
             raw-waveform source
 utils     : `.ini` configuration, history CSVs, weights across frameworks
+native    : the C++ Zarr chunk decoder and int8 wire quantizer (g++ at
+            first use; imported on use, not by this package)
+analysis  : figures, catalogues, SAC / miniSEED IO, response removal
+            (imported on use, not by this package)
 cli       : `run-dc-torch`, the five workflow drivers, `build-cube-torch`
             (imported on use, not by this package)
 serve     : predictors and the raw-waveform frontend

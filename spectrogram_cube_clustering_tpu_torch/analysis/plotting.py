@@ -17,15 +17,20 @@ where it is not installed. The card's machine has no matplotlib, so the
 port imports this module there and draws nothing.
 
 Also `view_cluster_stats`, the figure of the cluster-count diagnostics
-(`km_metrics = True`, `workflow.fit`).
-
-Not copied: `view_detections` and `view_series` (h5py and the
-catalogues, items 14 and 20), and the figures no workflow stage draws.
+(`km_metrics = True`, `workflow.fit`), and the figures no workflow stage
+draws (`tests/test_torch_analysis.py` holds them to the originals):
+`view_history_aec` (and its alias `view_learning_curve`),
+`view_history_dec`, `view_centroid_output`, `view_class_pdf` (and
+`view_class_pdf_single`), `view_dec_output`, `compare_silhscore`,
+`centroid_dashboard`, `view_specgram`, `view_detections` (an `.h5`
+catalog; h5py at first use, as `data.h5` takes it), `view_series` (the
+catalogues, pandas at first use), `compare_images` and
+`centroid_distances`.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 
@@ -790,3 +795,386 @@ def plotter_async(figs: dict, base_dir: str, epoch=None):
     )
     t.start()
     return t
+
+
+def view_history_aec(history: Dict[str, Sequence], show: bool = False):
+    """AEC training/validation MSE curves (reference view_history_AEC,
+    plotting.py:1336-1357). `history` has keys epoch/train/validation."""
+    plt = _plt()
+    fig, ax = plt.subplots(figsize=(8, 5))
+    ax.plot(history["epoch"], history["train"], label="Training")
+    ax.plot(history["epoch"], history["validation"], label="Validation")
+    ax.set_xlabel("Epoch")
+    ax.set_ylabel("MSE")
+    ax.set_title("AEC Training History")
+    ax.legend()
+    return _finish(fig, show)
+
+
+view_learning_curve = view_history_aec  # plotting.py:1574-1598 variant
+
+
+def view_history_dec(
+    history: Dict[str, Sequence],
+    deltas: Optional[Dict[str, Sequence]] = None,
+    show: bool = False,
+):
+    """DEC loss components + delta-label curves (reference view_history_DEC,
+    plotting.py:1357-1388)."""
+    plt = _plt()
+    n_rows = 2 if deltas else 1
+    fig, axes = plt.subplots(n_rows, 1, figsize=(8, 4 * n_rows), squeeze=False)
+    ax = axes[0, 0]
+    ax.plot(history["iteration"], history["total"], label="Loss")
+    ax.plot(history["iteration"], history["reconstruction"], label="MSE")
+    ax.plot(history["iteration"], history["clustering"], label="KLD")
+    ax.set_xlabel("Iteration")
+    ax.set_ylabel("Loss")
+    ax.set_title("DEC Training History")
+    ax.legend()
+    if deltas:
+        ax2 = axes[1, 0]
+        ax2.plot(deltas["iteration"], deltas["delta"], "o-")
+        ax2.set_xlabel("Iteration")
+        ax2.set_ylabel(r"$\delta$ (changed labels)")
+    fig.tight_layout()
+    return _finish(fig, show)
+
+
+def view_centroid_output(centroid_decodes, show: bool = False):
+    """Decoded centroid spectrograms (reference view_centroid_output,
+    plotting.py:771-797)."""
+    plt = _plt()
+    xc = np.asarray(centroid_decodes)
+    k = len(xc)
+    fig, axes = plt.subplots(1, k, figsize=(3 * k, 3), squeeze=False)
+    for j in range(k):
+        _img(axes[0, j], _to_hw(xc[j]))
+        axes[0, j].set_title(f"Centroid {j + 1}")
+    fig.suptitle("Decoded Centroids")
+    return _finish(fig, show)
+
+
+def view_class_pdf_single(z, labels, centroids, p: int = 2, bins: int = 50,
+                          show: bool = False):
+    """Single-model cut: per-class own-centroid distance histograms."""
+    plt = _plt()
+    z = np.asarray(z)
+    labels = np.asarray(labels)
+    centroids = np.asarray(centroids)
+    k = len(centroids)
+    colors = cmap_lifeaquatic(k)
+    fig, axes = plt.subplots(k, 1, figsize=(7, 2 * k), squeeze=False, sharex=True)
+    for j in range(k):
+        sel = labels == j
+        ax = axes[j, 0]
+        if np.any(sel):
+            d = np.linalg.norm(z[sel] - centroids[j], ord=p, axis=1)
+            ax.hist(d, bins=bins, density=True, color=colors[j], alpha=0.8)
+        ax.set_ylabel(f"Class {j + 1}")
+    axes[-1, 0].set_xlabel(f"L{p} distance to centroid")
+    fig.suptitle("Distance-to-Centroid PDF")
+    return _finish(fig, show)
+
+
+def view_class_pdf(
+    data_a, labels_a=None, data_b=None, labels_b=None,
+    centroids_a=None, centroids_b=None, n_clusters: Optional[int] = None,
+    p: int = 2, show: bool = False,
+):
+    """Comparative GMM-vs-DEC class PDFs (reference view_class_pdf,
+    plotting.py:885-994): per centroid mu_k a stacked [GMM over DEC] pair
+    of panels, each holding EVERY class's density histogram of distances
+    to mu_k with class-colored fills, shared x-range and legend.
+
+    `view_class_pdf(z, labels, centroids)` falls back to the single-model
+    variant.
+    """
+    plt = _plt()
+    if centroids_a is None:
+        # legacy 3-positional call: (z, labels, centroids)
+        return view_class_pdf_single(data_a, labels_a, data_b, p=p, show=show)
+    from matplotlib import gridspec
+
+    from spectrogram_cube_clustering_tpu_torch.utils.mathutils import (
+        fractional_distance,
+    )
+
+    data_a, data_b = np.asarray(data_a), np.asarray(data_b)
+    labels_a, labels_b = np.asarray(labels_a), np.asarray(labels_b)
+    centroids_a, centroids_b = np.asarray(centroids_a), np.asarray(centroids_b)
+    if n_clusters is None:
+        n_clusters = len(centroids_a)
+    label_list = np.arange(n_clusters)  # class can be empty; see pdf note
+    # computed once and reused by the panel loop below — at cube scale
+    # each is an O(M*D) host pass and there are 2K of them
+    dists_a = [
+        fractional_distance(centroids_a[l], data_a, p)
+        for l in range(n_clusters)
+    ]
+    dists_b = [
+        fractional_distance(centroids_b[l], data_b, p)
+        for l in range(n_clusters)
+    ]
+    all_d = np.concatenate(dists_a + dists_b)
+    hi = float(np.ceil(all_d.max() / 10.0)) * 10 if len(all_d) else 1.0
+    bins = np.linspace(0, max(hi, 1.0), 200)
+    colors = cmap_lifeaquatic(n_clusters)
+    nrows = int(np.ceil(n_clusters / 2))
+    fig = plt.figure(figsize=(12, 2.5 * nrows), dpi=150)
+    gs = gridspec.GridSpec(nrows=nrows, ncols=2, hspace=0.3, wspace=0.05)
+
+    def _panel(ax, dist, labels, tag):
+        for ll in range(n_clusters):
+            dsel = dist[labels == label_list[ll]]
+            if len(dsel) == 0:  # empty class: density would divide by 0
+                continue
+            h = np.histogram(dsel, bins=bins, density=True)[0]
+            ax.plot(bins[:-1], h, color=colors[ll], label=f"{ll + 1}")
+            ax.fill_between(bins[:-1], 0, h, color=colors[ll], alpha=0.2)
+        ax.set_xlim(bins[0], bins[-1])
+        ax.text(1, 0.9, tag, ha="right", va="top", transform=ax.transAxes,
+                size=12)
+
+    last_ax = None
+    for l in range(n_clusters):
+        sub = gridspec.GridSpecFromSubplotSpec(
+            2, 1, subplot_spec=gs[l // 2, l % 2], hspace=0, wspace=0
+        )
+        axa = fig.add_subplot(sub[0])
+        _panel(axa, dists_a[l], labels_a, "GMM")
+        axa.set_title(rf"Class PDFs relative to $\mu_{{{l + 1}}}$",
+                      loc="left", size=12)
+        axa.set_xticklabels([])
+        axb = fig.add_subplot(sub[1])
+        _panel(axb, dists_b[l], labels_b, "DEC")
+        if l == n_clusters - 1 or (n_clusters % 2 == 0 and l == n_clusters - 2):
+            axb.set_xlabel(rf"$d=\Vert z-\mu_k\Vert_{p}$", size=12)
+            axb.set_ylabel("PDF", size=12)
+            last_ax = axb
+        else:
+            axb.set_xticklabels([]), axb.set_yticklabels([])
+    handles, leg_labels = (last_ax or axb).get_legend_handles_labels()
+    leg = fig.legend(handles, leg_labels, loc="lower center",
+                     ncol=n_clusters, fontsize=10)
+    leg.set_title("Classes")
+    fig.subplots_adjust(bottom=0.18)
+    return _finish(fig, show)
+
+
+def view_dec_output(x, label, x_rec, z, idx: int = 0, show: bool = False):
+    """Single-sample input/latent/reconstruction panel (reference
+    view_DEC_output, plotting.py:1224-1262)."""
+    plt = _plt()
+    fig, axes = plt.subplots(1, 3, figsize=(12, 3))
+    _img(axes[0], _to_hw(np.asarray(x)))
+    axes[0].set_title(f"Input #{idx} (class {int(label) + 1})")
+    axes[1].bar(np.arange(len(z)), np.asarray(z))
+    axes[1].set_title("Latent")
+    _img(axes[2], _to_hw(np.asarray(x_rec)))
+    axes[2].set_title("Reconstruction")
+    return _finish(fig, show)
+
+
+def compare_silhscore(
+    scores_z, scores_x, labels, n_clusters, xlim=(-1, 1), show: bool = False
+):
+    """Side-by-side latent/data-space silhouette plots (reference
+    compare_silhscore, plotting.py:562-640)."""
+    plt = _plt()
+    labels = np.asarray(labels)
+    colors = cmap_lifeaquatic(n_clusters)
+    fig, axes = plt.subplots(
+        1, 2, figsize=(12, max(n_clusters, 2)), sharey=True
+    )
+    for ax, scores, name in (
+        (axes[0], np.asarray(scores_z), "Latent Space"),
+        (axes[1], np.asarray(scores_x), "Data Space"),
+    ):
+        y_lower = 10
+        for j in range(n_clusters):
+            cs = np.sort(scores[labels == j])
+            y_upper = y_lower + len(cs)
+            ax.fill_betweenx(
+                np.arange(y_lower, y_upper), 0, cs,
+                facecolor=colors[j], edgecolor=colors[j], alpha=0.7,
+            )
+            y_lower = y_upper + 10
+        ax.axvline(float(np.mean(scores)), color="red", linestyle="--")
+        ax.set_title(name)
+        ax.set_xlim(list(xlim))
+        ax.set_xlabel("Silhouette Coefficient")
+        ax.set_yticks([])
+    return _finish(fig, show)
+
+
+def centroid_dashboard(z, labels, centroids, p: int = 2, show: bool = False):
+    """Per-class distance summaries: box plot of distance-to-centroid plus
+    inter-centroid distance matrix (reference centroid_dashboard,
+    plotting.py:162-284)."""
+    plt = _plt()
+    z = np.asarray(z)
+    labels = np.asarray(labels)
+    centroids = np.asarray(centroids)
+    k = len(centroids)
+    fig, axes = plt.subplots(1, 2, figsize=(12, 5))
+    dists = [
+        np.linalg.norm(z[labels == j] - centroids[j], ord=p, axis=1)
+        for j in range(k)
+    ]
+    axes[0].boxplot(
+        [d if len(d) else [0.0] for d in dists],
+        tick_labels=[str(j + 1) for j in range(k)],
+    )
+    axes[0].set_xlabel("Class")
+    axes[0].set_ylabel(f"L{p} distance to centroid")
+    axes[0].set_title("Within-class distances")
+    cc = np.linalg.norm(
+        centroids[:, None, :] - centroids[None, :, :], ord=p, axis=2
+    )
+    im = axes[1].imshow(cc, cmap="viridis")
+    axes[1].set_title("Inter-centroid distances")
+    axes[1].set_xticks(range(k))
+    axes[1].set_yticks(range(k))
+    fig.colorbar(im, ax=axes[1])
+    return _finish(fig, show)
+
+
+def view_specgram(
+    x, tvec=None, fvec=None, figtitle: str = "Spectrogram", show: bool = False
+):
+    """Spectrogram panel with physical time/freq axes when provided
+    (reference view_specgram, plotting.py:1805-1836)."""
+    plt = _plt()
+    x2d = _to_hw(np.asarray(x))
+    fig, ax = plt.subplots(figsize=(8, 4))
+    extent = None
+    if tvec is not None and fvec is not None:
+        extent = [tvec[0], tvec[-1], fvec[0], fvec[-1]]
+    im = ax.imshow(
+        x2d, aspect="auto", origin="lower", cmap="viridis", extent=extent
+    )
+    ax.set_xlabel("Time (s)" if tvec is not None else "Time bin")
+    ax.set_ylabel("Frequency (Hz)" if fvec is not None else "Frequency bin")
+    ax.set_title(figtitle)
+    fig.colorbar(im, ax=ax, label="log power")
+    return _finish(fig, show)
+
+
+def view_detections(
+    fname_dataset, img_index, figsize=(12, 9), show: bool = False
+):
+    """Gallery of catalog samples: spectrogram + trace per index (reference
+    view_detections, plotting.py:1265-1333)."""
+    import json
+
+    from spectrogram_cube_clustering_tpu_torch.data.h5 import _h5py
+
+    plt = _plt()
+    h5py = _h5py()
+
+    n = len(img_index)
+    fig, axes = plt.subplots(2, n, figsize=figsize, squeeze=False)
+    with h5py.File(fname_dataset, "r") as f:
+        spec_d = f["/4.0/Spectrogram"]
+        trace_d = f["/4.0/Trace"]
+        cat_d = f["/4.0/Catalogue"]
+        for i, idx in enumerate(img_index):
+            spec = np.asarray(spec_d[idx])[:-1, 1:]
+            trace = np.asarray(trace_d[idx])
+            meta = json.loads(cat_d[idx])
+            _img(axes[0, i], spec)
+            axes[0, i].set_title(f"{meta.get('Station', '?')} #{idx}")
+            axes[1, i].plot(trace, lw=0.5)
+            axes[1, i].set_xticks([])
+    axes[0, 0].set_ylabel("Spectrogram")
+    axes[1, 0].set_ylabel("Trace")
+    return _finish(fig, show)
+
+
+def view_series(
+    station: str,
+    aws: str,
+    path_to_data: str,
+    path_to_catalogue: str,
+    path_to_labels: str,
+    env_vars=("tide", "sea_ice_conc", "temp", "wind_spd"),
+    times=None,
+    freq: str = "month",
+    threshold=None,
+    log: bool = False,
+    figsize=(12, 9),
+    show: bool = False,
+):
+    """Environmental series stacked over per-class detection counts
+    (reference view_series, plotting.py:1601-1757)."""
+    plt = _plt()
+    from spectrogram_cube_clustering_tpu_torch.analysis.catalogue import (
+        EnvironmentCatalogue,
+        LabelCatalogue,
+    )
+
+    df_env = EnvironmentCatalogue(station, aws, path_to_data).df
+    catalogue = LabelCatalogue(
+        [path_to_catalogue, path_to_labels], threshold=threshold
+    )
+    counts = catalogue.gather_counts(station=station, freq=freq)
+    if times is not None:
+        df_env = df_env.loc[(df_env.index >= times[0]) & (df_env.index <= times[1])]
+        counts = counts.loc[(counts.index >= times[0]) & (counts.index <= times[1])]
+
+    env_vars = [v for v in env_vars if v in df_env.columns]
+    n_rows = len(env_vars) + 1
+    fig, axes = plt.subplots(n_rows, 1, figsize=figsize, sharex=True, squeeze=False)
+    for i, var in enumerate(env_vars):
+        axes[i, 0].plot(df_env.index, df_env[var], lw=0.8)
+        axes[i, 0].set_ylabel(var)
+    ax = axes[-1, 0]
+    colors = cmap_lifeaquatic(counts.shape[1])
+    for j, col in enumerate(counts.columns):
+        ax.plot(counts.index, counts[col], color=colors[j], label=f"Class {col}")
+    if log:
+        ax.set_yscale("log")
+    ax.set_ylabel(f"Detections / {freq}")
+    ax.legend(ncol=min(counts.shape[1], 5), fontsize=8)
+    fig.suptitle(f"{station} — environment vs class activity")
+    return _finish(fig, show)
+
+
+def compare_images(x, x_rec, idx: int = 0, show: bool = False):
+    """Original vs reconstruction pair with a difference panel (reference
+    compare_images, plotting.py:525-559)."""
+    plt = _plt()
+    a = _to_hw(np.asarray(x)[idx] if np.asarray(x).ndim == 4 else x)
+    b = _to_hw(np.asarray(x_rec)[idx] if np.asarray(x_rec).ndim == 4 else x_rec)
+    fig, axes = plt.subplots(1, 3, figsize=(12, 3))
+    _img(axes[0], a)
+    axes[0].set_title("Original")
+    _img(axes[1], b)
+    axes[1].set_title("Reconstruction")
+    _img(axes[2], a - b, cmap="coolwarm")
+    axes[2].set_title("Difference")
+    return _finish(fig, show)
+
+
+def centroid_distances(z, labels, centroids, p: int = 2, show: bool = False):
+    """Mean within-class distance to each centroid as a bar chart
+    (reference centroid_distances, plotting.py:287-303)."""
+    plt = _plt()
+    z = np.asarray(z)
+    labels = np.asarray(labels)
+    centroids = np.asarray(centroids)
+    k = len(centroids)
+    means = []
+    for j in range(k):
+        sel = labels == j
+        means.append(
+            float(np.linalg.norm(z[sel] - centroids[j], ord=p, axis=1).mean())
+            if np.any(sel) else 0.0
+        )
+    fig, ax = plt.subplots(figsize=(6, 4))
+    ax.bar(np.arange(1, k + 1), means, color=cmap_lifeaquatic(k))
+    ax.set_xlabel("Class")
+    ax.set_ylabel(f"Mean L{p} distance to centroid")
+    ax.set_title("Centroid Distances")
+    return _finish(fig, show)

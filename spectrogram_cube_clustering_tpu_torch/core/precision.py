@@ -87,7 +87,11 @@ def quantize_wire(batch: np.ndarray, wire: Optional[torch.dtype]) -> Wire:
     a CPU tensor (float wires: a cast, round to nearest even), or for the
     int8 wire {"q": int8 codes, "scale": float32 (B, 1, ..., 1)} with
     q = round(x / s), s = max(absmax / 127, tiny) per sample (axis 0 of a
-    batch; a rank-1 segment is one sample)."""
+    batch; a rank-1 segment is one sample). Unlike the JAX package, a
+    float32 batch does not take the native quantizer
+    (`native.quantize_int8`, bit-equal on finite inputs): starting its
+    threads costs more than this expression on the stream loader's
+    64-window batches (ROADMAP item 24)."""
     return quantize_tensor(
         torch.from_numpy(np.ascontiguousarray(batch, np.float32)), wire)
 

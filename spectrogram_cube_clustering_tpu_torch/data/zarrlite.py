@@ -7,13 +7,14 @@ need dask's graph machinery. This implements the Zarr v2 on-disk format
 directly: `.zgroup`/`.zarray` JSON metadata and C-order chunk files named
 "i.j.k", with raw / zlib / gzip / blosc compression. Blosc — zarr v2's
 default compressor, hence what a real Cube_chunked_5758.zarr store uses —
-is decoded by `data.blosc1` (libblosc fast path + pure-Python fallback).
+is decoded by `data.blosc1` (libblosc fast path + pure-Python fallback)
+or the native C++ decoder (native/zarr_decode.cpp).
 
-A copy of the JAX package's `data/zarrlite.py` with its Python decode
-path only: the JAX reader decodes a batch of chunks through its native
-thread-pool decoder (`native/zarr_decode.cpp`), which belongs to the JAX
-package; here every chunk goes through `_read_chunk` (ROADMAP Queue 1
-item 21). Tests pin the copy to the original.
+A copy of the JAX package's `data/zarrlite.py`: a read that spans more
+than one uncached chunk decodes them at once through the port's copy of
+the native thread-pool decoder (`native.decode_chunks`, built with g++ at
+first use); a single chunk, and the tests' plain version, go through
+`_read_chunk` / `_decode_chunk`. Tests pin the copy to the original.
 
 Only step-1 orthogonal indexing (ints and contiguous slices) is supported —
 exactly what the cube reader uses.
@@ -125,6 +126,38 @@ class ZarrArray:
         arr = np.frombuffer(raw, dtype=self.dtype)
         return arr.reshape(self.chunks)
 
+    def _read_chunks_batch(self, idx_list) -> np.ndarray:
+        """(n, *chunks): decode many chunks at once — through the native
+        thread-pool decoder (native/zarr_decode.cpp) when worthwhile, else
+        the Python path. fill_value must be 0 for the native path
+        (zarr_decode zero-fills missing chunks)."""
+        keys = [tuple(i) for i in idx_list]
+        cached = {k: self._cache_get(k) for k in keys}
+        missing = [i for i, k in zip(idx_list, keys) if cached[k] is None]
+        if len(missing) > 1 and self.fill_value in (0, None):
+            from spectrogram_cube_clustering_tpu_torch import native
+
+            out = native.decode_chunks(
+                [self._chunk_path(i) for i in missing],
+                self.chunks,
+                self.dtype,
+                self.compressor_id,
+            )
+            if out is not None:
+                for i, chunk in zip(missing, out):
+                    k = tuple(i)
+                    cached[k] = chunk
+                    # copy before caching: `chunk` is a row view into the
+                    # decoder's whole (n, *chunks) buffer, and caching the
+                    # view would pin that entire allocation until eviction
+                    # (must be .copy() — ascontiguousarray is a no-op on a
+                    # contiguous row view and returns the view itself)
+                    self._cache_put(k, chunk.copy())
+                missing = []
+        for i in missing:
+            cached[tuple(i)] = self._read_chunk(i)
+        return np.stack([cached[k] for k in keys])
+
     def __getitem__(self, key) -> np.ndarray:
         if not isinstance(key, tuple):
             key = (key,)
@@ -174,8 +207,8 @@ class ZarrArray:
             [a + i for a, i in zip(c0, cidx)]
             for cidx in np.ndindex(*[b - a for a, b in zip(c0, c1)])
         ]
-        for chunk_idx in chunk_ids:
-            chunk = self._read_chunk(chunk_idx)
+        chunks = self._read_chunks_batch(chunk_ids)
+        for chunk_idx, chunk in zip(chunk_ids, chunks):
             src, dst = [], []
             for d in range(self.ndim):
                 cs = chunk_idx[d] * self.chunks[d]

@@ -369,3 +369,13 @@ def config_training(
 
 def load_config(init_path: str) -> Configuration:
     return Configuration(init_path).load_config()
+
+
+def init_project_env(*paths: str) -> None:
+    """Create project folders idempotently (reference init_project_env,
+    utils.py:983-992)."""
+    for path in paths:
+        created = not os.path.exists(path)
+        os.makedirs(path, exist_ok=True)
+        print(f"{path} {'created' if created else 'exists'}.")
+    print("Project folders initialized.")

@@ -23,6 +23,16 @@ def _cell(v) -> str:
     return repr(float(v))
 
 
+def add_to_history(
+    history: Dict[str, list], values: Dict[str, float]
+) -> Dict[str, list]:
+    """Append one row of scalars to a history dict of lists (a copy of
+    the JAX package's)."""
+    for k, v in values.items():
+        history.setdefault(k, []).append(v)
+    return history
+
+
 def save_history(history: Dict[str, Sequence], path: str) -> None:
     """Write a history dict of equal-length columns to CSV, first key as
     index (reference utils.py:1158-1179)."""

@@ -1,8 +1,8 @@
 """Import isolation of the port: every module of
 `spectrogram_cube_clustering_tpu_torch` (the CLI included) and
 `chip_smoke.py` import in a process where jax, flax, optax, orbax,
-pandas, matplotlib, sklearn, h5py, tensorboard, ml_dtypes and the JAX
-package cannot be imported. That pins both rules: the port never touches the JAX
+pandas, matplotlib, sklearn, h5py, tensorboard, ml_dtypes, obspy and the
+JAX package cannot be imported. That pins both rules: the port never touches the JAX
 package, and it runs with what the card's machine has (torch, numpy,
 scipy, einops, triton, the CUDA toolkit).
 """
@@ -14,7 +14,7 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "pandas", "matplotlib",
-           "sklearn", "h5py", "tensorboard", "ml_dtypes",
+           "sklearn", "h5py", "tensorboard", "ml_dtypes", "obspy",
            "spectrogram_cube_clustering_tpu")
 
 CODE = f"""
@@ -51,7 +51,9 @@ for sub in ("cli", "cli.run_dc", "cli.drivers", "cli.tools",
             "cluster.tsne", "cluster.tsne_torch", "utils.mathutils",
             "core.mesh", "parallel", "parallel.cluster", "parallel.halo",
             "utils.torch_port", "utils.profiling",
-            "train.layout", "train.state", "serve", "serve_http"):
+            "train.layout", "train.state", "serve", "serve_http", "native",
+            "analysis", "analysis.sacio", "analysis.seismic",
+            "analysis.catalogue"):
     assert pkg.__name__ + "." + sub in names, sub
 import chip_smoke  # noqa: F401
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
