@@ -1,0 +1,8 @@
+"""The share of the traced serving window in which no kernel, copy or
+fill ran on the card."""
+
+from portbench import trace
+
+
+def read(data):
+    return trace.idle_pct((data.get("slice") or {}).get("summary"))
