@@ -27,6 +27,10 @@ state sums the gradients over the ranks (`train/state.py`), and the
 epoch's loss sums are added over the ranks once an epoch, so histories,
 early stopping and checkpoints are the same on every rank. Only rank 0
 writes checkpoints and snapshots.
+
+Each step, validation pass and epoch end, and each checkpoint and
+snapshot write within it, is a span (`utils.profiling.annotate`) in the
+trace of a profiler session; with none on, a span costs one flag read.
 """
 
 from __future__ import annotations
@@ -48,6 +52,15 @@ from spectrogram_cube_clustering_tpu_torch.train.layout import BatchedData
 from spectrogram_cube_clustering_tpu_torch.train.state import (
     TrainState,
     params_copy,
+)
+from spectrogram_cube_clustering_tpu_torch.utils.profiling import (
+    TRAIN_CHECKPOINT,
+    TRAIN_EPOCH_END,
+    TRAIN_EVAL,
+    TRAIN_SNAPSHOT,
+    TRAIN_STEP,
+    annotate,
+    spanned,
 )
 
 
@@ -78,21 +91,30 @@ def _epoch_mean(sums: torch.Tensor, data: BatchedData) -> float:
     return float(sums / torch.clamp(torch.sum(data.counts), min=1.0))
 
 
+@spanned(TRAIN_STEP)
+def _train_step(state: TrainState, x: torch.Tensor, mask: torch.Tensor,
+                count: torch.Tensor, precision: Precision,
+                sums: torch.Tensor) -> None:
+    """One Adam step on a batch's masked MSE; adds loss * count to
+    `sums`."""
+    loss = _batch_loss(state.model, x, mask, count, precision)
+    loss.backward()
+    state.apply_gradients()
+    sums += loss.detach() * count
+
+
 def train_epoch(state: TrainState, data: BatchedData,
                 precision: Precision = DEFAULT) -> float:
     """One pass of Adam steps over every batch; the epoch's mean loss."""
-    model = state.model
     counts = torch.clamp(data.counts, min=1.0)
     sums = torch.zeros((), dtype=torch.float32, device=data.x.device)
     for i in range(data.n_batches):
-        loss = _batch_loss(model, data.x[i], data.mask[i], counts[i],
-                           precision)
-        loss.backward()
-        state.apply_gradients()
-        sums += loss.detach() * counts[i]
+        _train_step(state, data.x[i], data.mask[i], counts[i], precision,
+                    sums)
     return _epoch_mean(sums, data)
 
 
+@spanned(TRAIN_EVAL)
 @torch.no_grad()
 def eval_epoch(model, data: BatchedData,
                precision: Precision = DEFAULT) -> float:
@@ -144,43 +166,50 @@ def _run_epochs(
     epoch = start_epoch - 1
     for epoch in () if finished else range(start_epoch, config.n_epochs):
         tra_loss, val_loss = run_epoch(state)
-        history["epoch"].append(epoch + 1)
-        history["train"].append(tra_loss)
-        history["validation"].append(val_loss)
-        if log_scalar is not None:
-            log_scalar("Training MSE", tra_loss, epoch + 1)
-            log_scalar("Validation MSE", val_loss, epoch + 1)
-        if config.verbose:
-            print(
-                f"Epoch [{epoch + 1}/{config.n_epochs}] "
-                f"train={tra_loss:.4e} val={val_loss:.4e}"
-            )
-        if config.early_stopping:
-            if val_loss < best_val:
-                strikes = 0
-                best_val = val_loss
-                best_params = params_copy(model)
-                if save_checkpoint is not None:
-                    save_checkpoint("AEC_Best_Weights", best_params)
-            else:
-                strikes += 1
-            if epoch > config.patience and strikes > config.patience:
-                finished = True
-        elif save_checkpoint is not None:
-            save_checkpoint(f"AEC_Params_{epoch + 1:03d}", params_copy(model))
-        if snapshot_path is not None and (
-            (epoch + 1) % snapshot_every == 0 or finished
-            or epoch + 1 == config.n_epochs
-        ):
-            # `done` marks a snapshot written at the early stop, so a
-            # resume does not train past the stopping point
-            ckpt.save_snapshot(
-                snapshot_path, state,
-                {"epoch": epoch + 1, "history": history,
-                 "best_val": best_val, "strikes": strikes,
-                 "have_best": best_params is not None, "done": finished},
-                extra=best_params,
-            )
+        # the card idles here but for what the epoch's bookkeeping launches
+        with annotate(TRAIN_EPOCH_END):
+            history["epoch"].append(epoch + 1)
+            history["train"].append(tra_loss)
+            history["validation"].append(val_loss)
+            if log_scalar is not None:
+                log_scalar("Training MSE", tra_loss, epoch + 1)
+                log_scalar("Validation MSE", val_loss, epoch + 1)
+            if config.verbose:
+                print(
+                    f"Epoch [{epoch + 1}/{config.n_epochs}] "
+                    f"train={tra_loss:.4e} val={val_loss:.4e}"
+                )
+            if config.early_stopping:
+                if val_loss < best_val:
+                    strikes = 0
+                    best_val = val_loss
+                    best_params = params_copy(model)
+                    if save_checkpoint is not None:
+                        with annotate(TRAIN_CHECKPOINT):
+                            save_checkpoint("AEC_Best_Weights", best_params)
+                else:
+                    strikes += 1
+                if epoch > config.patience and strikes > config.patience:
+                    finished = True
+            elif save_checkpoint is not None:
+                with annotate(TRAIN_CHECKPOINT):
+                    save_checkpoint(f"AEC_Params_{epoch + 1:03d}",
+                                    params_copy(model))
+            if snapshot_path is not None and (
+                (epoch + 1) % snapshot_every == 0 or finished
+                or epoch + 1 == config.n_epochs
+            ):
+                # `done` marks a snapshot written at the early stop, so a
+                # resume does not train past the stopping point
+                with annotate(TRAIN_SNAPSHOT):
+                    ckpt.save_snapshot(
+                        snapshot_path, state,
+                        {"epoch": epoch + 1, "history": history,
+                         "best_val": best_val, "strikes": strikes,
+                         "have_best": best_params is not None,
+                         "done": finished},
+                        extra=best_params,
+                    )
         if finished:
             break
 
@@ -258,6 +287,7 @@ def make_step_fns(model, precision: Precision = DEFAULT,
         per = torch.mean(d * d, dim=tuple(range(1, x.dim())))
         return torch.sum(per * mask) / max(float(n_valid), 1.0)
 
+    @spanned(TRAIN_STEP)
     def train_step(state: TrainState, x, n_valid: int) -> torch.Tensor:
         loss = loss_fn(x, n_valid)
         loss.backward()
@@ -314,11 +344,12 @@ def train_aec_stream(
         tra_loss = _weighted_mean(losses, ns, mesh)
         if make_val_loader is None:
             return tra_loss, tra_loss
-        vl, vn = [], []
-        for x, n_valid in make_val_loader():
-            vl.append(eval_step(x, n_valid))
-            vn.append(n_valid)
-        return tra_loss, _weighted_mean(vl, vn, mesh)
+        with annotate(TRAIN_EVAL):
+            vl, vn = [], []
+            for x, n_valid in make_val_loader():
+                vl.append(eval_step(x, n_valid))
+                vn.append(n_valid)
+            return tra_loss, _weighted_mean(vl, vn, mesh)
 
     return _run_epochs(model, state, config, run_epoch,
                        snapshot_path=snapshot_path,

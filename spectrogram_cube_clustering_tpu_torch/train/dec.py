@@ -39,6 +39,10 @@ package's masked mean over the global batch (`_dec_loss`): each rank's
 block's sum over the global count, the gradients summed over the ranks
 (`train/state.py`), the history's losses added over the ranks once a
 segment.
+
+Spans (`utils.profiling.annotate`) mark each step, each full eval, each
+refresh around its full eval, and each epoch end around its snapshot
+write, as in `train/aec.py`.
 """
 
 from __future__ import annotations
@@ -71,6 +75,15 @@ from spectrogram_cube_clustering_tpu_torch.train.state import (
     TrainState,
     params_copy,
 )
+from spectrogram_cube_clustering_tpu_torch.utils.profiling import (
+    DEC_FULL_EVAL,
+    DEC_REFRESH,
+    TRAIN_EPOCH_END,
+    TRAIN_SNAPSHOT,
+    TRAIN_STEP,
+    annotate,
+    spanned,
+)
 
 #: rows per forward pass of `full_eval`: rows are independent, so the
 #: eval may take more of them at once than a training batch
@@ -91,6 +104,7 @@ class DECConfig:
     verbose: bool = False
 
 
+@spanned(DEC_FULL_EVAL)
 @torch.no_grad()
 def full_eval(model, data: BatchedData, with_xr: bool = False,
               precision: Precision = DEFAULT):
@@ -314,12 +328,13 @@ def _train_dec(model, state, config: DECConfig, batches, evaluate, m: int,
             if batch_num % update_interval == 0 and not (
                 batch_num == 0 and epoch == 0
             ):
-                running, n_iter = _flush(sums(), running, history, n_iter,
-                                         log_scalar)
-                q, labels, _ = evaluate()
-                p = target_distribution(q)
-                delta = float(torch.mean((labels != labels_prev)
-                                         .to(torch.float32)))
+                with annotate(DEC_REFRESH):
+                    running, n_iter = _flush(sums(), running, history,
+                                             n_iter, log_scalar)
+                    q, labels, _ = evaluate()
+                    p = target_distribution(q)
+                    delta = float(torch.mean((labels != labels_prev)
+                                             .to(torch.float32)))
                 deltas["iteration"].append(n_iter)
                 deltas["delta"].append(delta)
                 if log_scalar is not None:
@@ -341,29 +356,34 @@ def _train_dec(model, state, config: DECConfig, batches, evaluate, m: int,
             pending.append((loss, rec, clust, n_valid))
             offset += n_valid
             batch_num += 1
-        running, n_iter = _flush(sums(), running, history, n_iter,
-                                 log_scalar)
-        if config.verbose and not finished:
-            accum = running[:3] / max(running[3], 1.0)
-            print(
-                f"Epoch [{epoch + 1}/{config.n_epochs}] "
-                f"Loss={accum[0]:.4e} MSE={accum[1]:.4e} KLD={accum[2]:.4e}"
-            )
-        if (snapshot_cb is not None and not finished
-                and (epoch + 1) % snapshot_every == 0):
-            _, labels_s, z_s = evaluate()
-            snapshot_cb(
-                epoch + 1, _host(labels_s), _host(z_s),
-                model.clustering.weights.detach().cpu().numpy(),
-                initial=initial_snapshot,
-            )
-        if snapshot_path is not None and not finished:
-            ckpt.save_snapshot(
-                snapshot_path, state,
-                {"epoch": epoch + 1, "history": history, "deltas": deltas,
-                 "n_iter": n_iter},
-                extra={"p": p, "labels_prev": labels_prev},
-            )
+        fetched = sums()
+        # the card idles here but for what the epoch's bookkeeping launches
+        with annotate(TRAIN_EPOCH_END):
+            running, n_iter = _flush(fetched, running, history, n_iter,
+                                     log_scalar)
+            if config.verbose and not finished:
+                accum = running[:3] / max(running[3], 1.0)
+                print(
+                    f"Epoch [{epoch + 1}/{config.n_epochs}] "
+                    f"Loss={accum[0]:.4e} MSE={accum[1]:.4e} "
+                    f"KLD={accum[2]:.4e}"
+                )
+            if (snapshot_cb is not None and not finished
+                    and (epoch + 1) % snapshot_every == 0):
+                _, labels_s, z_s = evaluate()
+                snapshot_cb(
+                    epoch + 1, _host(labels_s), _host(z_s),
+                    model.clustering.weights.detach().cpu().numpy(),
+                    initial=initial_snapshot,
+                )
+            if snapshot_path is not None and not finished:
+                with annotate(TRAIN_SNAPSHOT):
+                    ckpt.save_snapshot(
+                        snapshot_path, state,
+                        {"epoch": epoch + 1, "history": history,
+                         "deltas": deltas, "n_iter": n_iter},
+                        extra={"p": p, "labels_prev": labels_prev},
+                    )
         if finished:
             break
 
@@ -393,6 +413,7 @@ def make_stream_fns(model, gamma: float, precision: Precision = DEFAULT,
     block's shares of the global ones (`_dec_loss` of the JAX package:
     the masked sums over the global count)."""
 
+    @spanned(TRAIN_STEP)
     def train_step(state: TrainState, x, p: torch.Tensor, n_valid: int):
         x = dequant_wire(x)
         lo = 0 if mesh is None else mesh.rank * x.shape[0]
@@ -416,6 +437,7 @@ def make_stream_fns(model, gamma: float, precision: Precision = DEFAULT,
     return train_step, eval_step
 
 
+@spanned(DEC_FULL_EVAL)
 def full_eval_stream(eval_step, make_loader, m_total: int,
                      mesh: Optional[DataMesh] = None):
     """Streamed full-dataset eval: (q (M, K), labels (M,), z (M, D)) as

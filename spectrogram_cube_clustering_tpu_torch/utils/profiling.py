@@ -6,8 +6,12 @@ wall-clock prints and tqdm bars, SURVEY.md §5 "Tracing"):
   with CUDA activity when `device` is a card (the default), written to
   `logdir` as a chrome trace (`trace.json`, for Perfetto or
   chrome://tracing); the profile itself is yielded;
-- `annotate(name)`: a named span, an NVTX range on a card and a
-  `record_function` in the profiler's trace;
+- `annotate(name)`: a named span, a `record_function` in the trace of
+  the profiler session that is on, and nothing at all (one flag read)
+  where none is; under `torch.autograd.profiler.emit_nvtx()` every such
+  span is an NVTX range; `spanned(name)` makes each call of a function
+  such a span. The training loops' spans are named by the constants
+  below;
 - `StepTimer`: per-step wall-clock stats (mean, p50, nearest-rank p95,
   items/s) with a warm-up skip, the JAX package's API and arithmetic.
   Given a CUDA device it synchronizes it before reading the clock at each
@@ -17,6 +21,7 @@ wall-clock prints and tqdm bars, SURVEY.md §5 "Tracing"):
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import time
 from typing import Dict, Iterator, List, Optional
@@ -26,6 +31,19 @@ import torch
 from spectrogram_cube_clustering_tpu_torch.core.device import resolve_device
 
 TRACE_FILE = "trace.json"
+
+#: the training loops' spans (`train/aec.py`, `train/dec.py`)
+TRAIN_STEP = "train.step"              # one optimizer step
+TRAIN_EVAL = "train.eval"              # AEC's validation pass
+DEC_FULL_EVAL = "dec.full_eval"        # every full-set forward of DEC
+DEC_REFRESH = "dec.refresh"            # loss fetch, full eval, p, delta
+TRAIN_EPOCH_END = "train.epoch_end"    # history, logs, checkpoint, snapshot
+TRAIN_CHECKPOINT = "train.checkpoint"  # each `save_checkpoint` call
+TRAIN_SNAPSHOT = "train.snapshot"      # each snapshot write
+SPANS = (TRAIN_STEP, TRAIN_EVAL, DEC_FULL_EVAL, DEC_REFRESH, TRAIN_EPOCH_END,
+         TRAIN_CHECKPOINT, TRAIN_SNAPSHOT)
+
+_OFF = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -44,18 +62,25 @@ def trace(logdir: str, device=None) -> Iterator[torch.profiler.profile]:
     prof.export_chrome_trace(os.path.join(logdir, TRACE_FILE))
 
 
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """A named span in profiler timelines (and in NVTX on a card)."""
-    nvtx = torch.cuda.is_available()
-    if nvtx:
-        torch.cuda.nvtx.range_push(name)
-    try:
-        with torch.profiler.record_function(name):
-            yield
-    finally:
-        if nvtx:
-            torch.cuda.nvtx.range_pop()
+def annotate(name: str):
+    """A named span in the trace of the profiler session that is on (a
+    `user_annotation` event on the clock of the card's kernels), or, with
+    no session on, a shared context that does nothing."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return torch.profiler.record_function(name)
+
+
+def spanned(name: str):
+    """Decorator: each call is an `annotate(name)` span, which also holds
+    the release of the call's frame (a step's autograd graph with it)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with annotate(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
 
 
 class StepTimer:

@@ -3,12 +3,15 @@ the JAX package's on the same recorded times (exactly: the same float
 arithmetic), the warm-up skip counts the same steps, a CUDA device is
 synchronized at both ends of each step; `trace` writes a chrome trace
 holding the `annotate` span and the profiled ops, and refuses to pick the
-CPU itself; `annotate` pushes and pops an NVTX range where there is a
-card.
+CPU itself; `annotate` reads one flag and returns one shared no-op with
+no profiler on, and under one records a span nested in its caller's,
+which an exception inside it leaves balanced; `spanned` makes each call
+a span that also holds the release of the call's frame.
 """
 
 import json
 import os
+import weakref
 
 import numpy as np
 import pytest
@@ -80,14 +83,102 @@ def test_trace_without_a_device_means_the_card():
     assert not os.path.exists("unused")
 
 
-def test_annotate_pushes_an_nvtx_range_on_a_card(monkeypatch):
-    calls = []
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(torch.cuda.nvtx, "range_push",
-                        lambda name: calls.append(("push", name)))
-    monkeypatch.setattr(torch.cuda.nvtx, "range_pop",
-                        lambda: calls.append(("pop",)))
-    with pytest.raises(ValueError):
-        with profiling.annotate("scc_span"):
-            raise ValueError
-    assert calls == [("push", "scc_span"), ("pop",)]
+def _spans(prof, path) -> dict:
+    """{name: [(ts, end, tid)]} of the profile's `user_annotation`s."""
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    out = {}
+    for e in events:
+        if e.get("cat") == "user_annotation":
+            out.setdefault(e["name"], []).append(
+                (e["ts"], e["ts"] + e["dur"], e["tid"]))
+    return out
+
+
+def _inside(inner, outer) -> bool:
+    return (inner[2] == outer[2] and outer[0] <= inner[0]
+            and inner[1] <= outer[1] + 1e-3)
+
+
+def test_annotate_with_no_profiler_reads_one_flag(monkeypatch):
+    flags = []
+    enabled = torch.autograd._profiler_enabled
+
+    def read_flag():
+        flags.append(1)
+        return enabled()
+
+    def entered(*args, **kwargs):
+        raise AssertionError("a span was entered with no profiler on")
+
+    monkeypatch.setattr(torch.autograd, "_profiler_enabled", read_flag)
+    monkeypatch.setattr(torch.profiler, "record_function", entered)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", entered)
+    monkeypatch.setattr(torch.cuda.nvtx, "range_push", entered)
+    spans = [profiling.annotate(name) for name in profiling.SPANS]
+    assert len(flags) == len(profiling.SPANS) == len(set(profiling.SPANS))
+    assert all(s is spans[0] for s in spans)
+    with spans[0]:
+        with spans[1]:
+            pass
+    assert len(flags) == len(profiling.SPANS)
+
+
+def test_annotate_span_nests_in_the_callers_span(tmp_path):
+    x = torch.randn(32, 32)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with torch.profiler.record_function("caller"):
+            with profiling.annotate(profiling.TRAIN_STEP):
+                (x @ x).sum()
+    spans = _spans(prof, tmp_path / "t.json")
+    (step,), (caller,) = spans[profiling.TRAIN_STEP], spans["caller"]
+    assert _inside(step, caller)
+    assert step[1] > step[0]
+
+
+def test_annotate_leaves_the_profiler_balanced_after_an_exception(tmp_path):
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with profiling.annotate("outer"):
+            with pytest.raises(ValueError):
+                with profiling.annotate("inner"):
+                    raise ValueError
+            with profiling.annotate("after"):
+                torch.ones(4) + 1
+    spans = _spans(prof, tmp_path / "t.json")
+    (outer,), (inner,), (after,) = (spans[n] for n in
+                                    ("outer", "inner", "after"))
+    assert _inside(inner, outer) and _inside(after, outer)
+    assert inner[1] <= after[0]
+    assert profiling.annotate("a") is profiling.annotate("b")
+
+
+def test_spanned_call_is_a_span_holding_its_frame_release(tmp_path):
+    class Held:
+        pass
+
+    @profiling.spanned(profiling.TRAIN_STEP)
+    def step(x, scale=1.0):
+        """A step."""
+        held = Held()
+        # an op run when the frame lets go of `held`
+        weakref.finalize(held, lambda: torch.ones(3).sum())
+        return x * scale
+
+    assert step.__name__ == "step" and step.__doc__ == "A step."
+    assert step(2.0, scale=3.0) == 6.0
+    x = torch.zeros(2)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        step(x)
+    path = tmp_path / "t.json"
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    (span,) = [(e["ts"], e["ts"] + e["dur"], e["tid"]) for e in events
+               if e.get("name") == profiling.TRAIN_STEP]
+    ones = [(e["ts"], e["ts"] + e["dur"], e["tid"]) for e in events
+            if e.get("name") == "aten::ones"]
+    assert len(ones) == 1 and _inside(ones[0], span)
