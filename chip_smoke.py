@@ -19,6 +19,18 @@ the script exits non-zero:
    tensors at the geometries below, atol 2e-3 on log10 (the kernel
    contract) and, since both finish in float64 and round once, within
    1e-6 (a float32 ulp of the output);
+3b. convt: the decoder's transposed-convolution kernel (D1,
+   `csrc/convt.cu` through `ops.cuda_convt`) on each of `Decoder`'s four
+   ConvTranspose2d -> ReLU layers at (87, 100) with 512 and 4,096 rows and
+   at (4, 101) with 64, from seeded weights and inputs: against the plain
+   version (cuDNN's `conv_transpose2d`, TF32 off, then relu) on the same
+   card inputs within rtol 1e-5 and 1e-6 of the largest output, and
+   against its float64 sum within 1e-6 of the largest output; then the
+   device time (CUDA-graph replay) of each layer and of the four in a
+   chain through the kernel, the plain version and the library call alone
+   beside the HBM-bytes bound, and the host microseconds of a 64-row
+   (4, 101) decoder forward and backward through the kernel against the
+   modules (the DAS steps, where the host sets the pace);
 4. slice: a DEC(n_clusters=5, input_hw=(4, 101)) with seeded random
    weights behind the HTTP server (`serve_http.make_server`, micro-batched
    `DECPredictor`, fused `WaveformFrontend`), sent /healthz, /predict and
@@ -35,7 +47,9 @@ the script exits non-zero:
    >= 0.90 against the kinds. The same DEC runs again with tol 0, so both
    epochs and all three refreshes run: the refresh iterations must be the
    schedule's, and its labels too must reach NMI >= 0.90; refreshes and
-   steps are timed apart. One AEC epoch and one DEC segment with a
+   steps are timed apart; every decoder forward of the phase must
+   launch the transposed-convolution kernel four times (3b's
+   launch count). One AEC epoch and one DEC segment with a
    refresh on 2,048 windows must give the same losses on the CPU and the
    card within rtol 1e-3. Two more AEC epochs, one plain and one under
    torch.profiler, give the device's busy time against each wall;
@@ -322,6 +336,13 @@ BIG = (16, 1 << 20)
 # (16, 2^22) would give 41,942 frames and a usable 7,624 rows, which the
 # reader refuses as not a whole number of chunks.
 CUBE_WAVE = (16, 3_167_400)
+#: 3b: (input_hw, rows) of the decoder at which the transposed-convolution
+#: kernel is held and timed: the RIS catalog's 512-row steps and 4,096-row
+#: refresh chunks, and the DAS windows' 64-row steps
+CONVT_GEOMETRIES = [((87, 100), 512), ((87, 100), 4096), ((4, 101), 64)]
+#: the kernel against cuDNN (TF32 off) on the same inputs: both sum at most
+#: 72 float32 products, in other orders; and against the float64 sum
+CONVT_RTOL, CONVT_ATOL, CONVT_F64 = 1e-5, 1e-6, 1e-6
 # H100 SXM data sheet: FP64 tensor-core peak (the SIMT FP64 peak is half)
 # and HBM3 bandwidth, at the 700 W limit
 FP64_PEAK = 67e12
@@ -481,6 +502,143 @@ def phase_kernel(device, gen, cuda_stft, spectrogram_plain) -> float:
     check(err <= STFT_ATOL, f"log=False gap {err}")
     check(cuda_stft.LAUNCHES > before, "kernel launches counted")
     return worst
+
+
+def decoder_host_us(dec, z, reps: int = 300) -> dict:
+    """Host microseconds of one decoder forward and backward, through the
+    kernel (`Decoder.forward`) and through the modules as the decoder ran
+    before (its `nn.Sequential`, cuDNN): `reps` of them back to back, then
+    one synchronize, over `reps`; three rounds, interleaved, medians. At
+    64 rows the card's share is a few tens of microseconds, so the host
+    sets the pace."""
+    routes = {"kernel": dec,
+              "modules": lambda v: dec.decoder(v).permute(0, 2, 3, 1)}
+    times = {name: [] for name in routes}
+    for _ in range(3):
+        for name, forward in routes.items():
+            for _ in range(20):
+                forward(z).sum().backward()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                forward(z).sum().backward()
+            torch.cuda.synchronize()
+            times[name].append(1e6 * (time.perf_counter() - t0) / reps)
+    return {name: float(np.median(t)) for name, t in times.items()}
+
+
+def phase_convt(device, card, cuda_convt) -> dict:
+    """Phase 3b: the decoder's transposed-convolution kernel against its
+    plain version and its float64 sum on the same card inputs, layer by
+    layer at CONVT_GEOMETRIES, then the times. Returns the kernels line's
+    entry (its launches are the training phases', filled in later)."""
+    from torch import nn
+    import torch.nn.functional as F
+
+    from spectrogram_cube_clustering_tpu_torch import models
+
+    before, worst, entry = cuda_convt.LAUNCHES, 0.0, None
+    for hw, rows in CONVT_GEOMETRIES:
+        gen = torch.Generator().manual_seed(rows + hw[0])
+        dec = models.AEC(input_hw=hw, generator=gen).decoder.to(device)
+        z = torch.rand((rows, 9), generator=gen).to(device)
+        noise = torch.Generator(device=device).manual_seed(rows)
+        layers = [(m.weight.detach(),
+                   None if m.bias is None else m.bias.detach(), m.stride,
+                   m.padding, m.output_padding)
+                  for m in dec.decoder if isinstance(m, nn.ConvTranspose2d)]
+        chain = {"kernel": 0.0, "plain": 0.0, "library": 0.0, "bytes": 0,
+                 "macs": 0}
+        with torch.no_grad():
+            h0 = dec.decoder[:3](z).contiguous()
+            h = h0
+            for i, args in enumerate(layers):
+                # the layer's input plus noise, so the ReLU cuts some
+                # outputs and not others
+                x = h + 0.1 * torch.randn(h.shape, generator=noise,
+                                          device=device)
+                got = cuda_convt.convt_relu_cuda(x, *args)
+                want = cuda_convt.convt_relu_plain(x, *args)
+                exact = cuda_convt.convt_relu_plain(
+                    x.double(), args[0].double(),
+                    None if args[1] is None else args[1].double(), *args[2:])
+                scale = float(want.abs().max())
+                gap = float((got - want).abs().max()) / scale
+                gap64 = float((got.double() - exact).abs().max()) / scale
+                what = f"convt {hw} x {rows} layer {i}"
+                check(scale > 0 and bool(torch.isfinite(got).all()), what)
+                check(got.shape == want.shape, f"{what} shape {got.shape}")
+                check(bool(torch.allclose(got, want, rtol=CONVT_RTOL,
+                                          atol=CONVT_ATOL * scale)),
+                      f"{what} against cuDNN: {gap:.3e} of the largest")
+                check(gap64 <= CONVT_F64,
+                      f"{what} against float64: {gap64:.3e} of the largest")
+                worst = max(worst, gap)
+                nbytes = 4 * (x.numel() + got.numel())
+                cout, kh, kw = args[0].shape[1:]
+                macs = x.numel() * cout * kh * kw
+                ms = {
+                    "kernel": graph_ms(
+                        lambda: cuda_convt.convt_relu_cuda(x, *args)),
+                    "plain": graph_ms(
+                        lambda: cuda_convt.convt_relu_plain(x, *args)),
+                    "library": graph_ms(
+                        lambda: F.conv_transpose2d(x, *args)),
+                }
+                bound = 1e3 * max(nbytes / HBM_BYTES_PER_S,
+                                  2 * macs / PIPE_PEAK["f32"])
+                print(f"{what} {tuple(x.shape)} -> {tuple(got.shape)}: gap "
+                      f"{gap:.3e} (float64 {gap64:.3e}); kernel "
+                      f"{ms['kernel']:.4f} ms, plain {ms['plain']:.4f}, "
+                      f"library {ms['library']:.4f}; bound {bound:.4f} ms "
+                      f"({bound / ms['kernel']:.1%})", flush=True)
+                chain["bytes"] += nbytes
+                chain["macs"] += macs
+                h = want
+
+            def through(fn):
+                def run():
+                    v = h0
+                    for args in layers:
+                        v = fn(v, *args)
+                    return v
+                return run
+
+            for name, fn in (("kernel", cuda_convt.convt_relu_cuda),
+                             ("plain", cuda_convt.convt_relu_plain),
+                             ("library", F.conv_transpose2d)):
+                chain[name] = graph_ms(through(fn))
+        bound = 1e3 * max(chain["bytes"] / HBM_BYTES_PER_S,
+                          2 * chain["macs"] / PIPE_PEAK["f32"])
+        print(f"convt {hw} x {rows} on {card}: the four layers in a chain, "
+              f"kernel {chain['kernel']:.4f} ms, plain (cuDNN + relu) "
+              f"{chain['plain']:.4f} ms, library call (cuDNN) "
+              f"{chain['library']:.4f} ms; bound {bound:.4f} ms "
+              f"({chain['bytes']} bytes at {HBM_BYTES_PER_S:.3g} B/s), "
+              f"kernel at {bound / chain['kernel']:.1%} of it", flush=True)
+        if entry is None:  # the first geometry: a 512-row RIS step
+            entry = {
+                "name": "convt_relu",
+                "route": "cuda",
+                "source": "spectrogram_cube_clustering_tpu_torch/csrc/"
+                          "convt.cu",
+                "replaces": None,
+                "shape": f"Decoder {hw}, {rows} rows, four layers",
+                "ms": chain["kernel"],
+                "plain_ms": chain["plain"],
+                "library_ms": chain["library"],
+                "bound_ms": bound,
+                "bound_by": "bytes",
+            }
+        if rows <= 64:
+            host = decoder_host_us(dec, z.requires_grad_(True))
+            print(f"convt {hw} x {rows} on {card}: host us a decoder forward "
+                  f"and backward, kernel {host['kernel']:.1f}, modules "
+                  f"{host['modules']:.1f}", flush=True)
+            entry["host_us_das"] = host
+    check(cuda_convt.LAUNCHES > before, "convt kernel launches counted")
+    entry["max_rel_err"] = worst
+    return entry
 
 
 def post(url: str, arr: np.ndarray):
@@ -3786,7 +3944,11 @@ def main() -> int:
         resolve_device,
         tf32_flags,
     )
-    from spectrogram_cube_clustering_tpu_torch.ops import _build, cuda_stft
+    from spectrogram_cube_clustering_tpu_torch.ops import (
+        _build,
+        cuda_convt,
+        cuda_stft,
+    )
     from spectrogram_cube_clustering_tpu_torch.signal.stft import (
         spectrogram_plain,
         spectrogram_windows,
@@ -3837,6 +3999,9 @@ def main() -> int:
     # 3. kernel against plain
     gen = torch.Generator(device=device).manual_seed(args.seed)
     max_err = phase_kernel(device, gen, cuda_stft, spectrogram_plain)
+    # 3b. the decoder's transposed-convolution kernel against its plain
+    # version
+    convt_entry = phase_convt(device, card, cuda_convt)
 
     # 4. slice through the HTTP server
     model = models.DEC(
@@ -3922,8 +4087,15 @@ def main() -> int:
               f"{name} windows_per_channel")
 
     # 4b. the training slice
+    cuda_convt.LAUNCHES = 0  # the training phases' run starts here
     train_launches = phase_training(device, gen, card, cuda_stft,
                                     spectrogram_plain, args.seed)
+    convt_launches = cuda_convt.LAUNCHES  # ... and ends here
+    print(f"training path: transposed-convolution kernel launches "
+          f"{convt_launches}", flush=True)
+    check(convt_launches > 0 and convt_launches % 4 == 0,
+          f"four convt launches a decoder forward, got {convt_launches}")
+    convt_entry["launches"] = convt_launches
     with tempfile.TemporaryDirectory() as tmp:
         # 4c. the 5-stage CLI workflow, from a Zarr cube and a raw waveform
         wf_launches, cube_err, sources, wave_launches = phase_workflow(
@@ -4032,7 +4204,7 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": library_ms,
-    }] + variant_entries + layout_entries}), flush=True)
+    }] + variant_entries + layout_entries + [convt_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

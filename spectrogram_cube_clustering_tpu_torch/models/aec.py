@@ -9,8 +9,11 @@ JAX package's `models/aec.py`; reference Cluster/networks.py:172-234).
 
 The layers are NCHW and sit in `nn.Sequential`s at the reference's indices,
 so a reference `.pt` state_dict (`encoder.encoder.<i>`, `decoder.decoder.<i>`)
-loads as it is. Public inputs and outputs are NHWC (B, H, W, 1), like the
-JAX package's; with one channel the change of layout is a free view.
+loads as it is. The decoder sends its ConvTranspose2d -> ReLU pairs through
+`ops.cuda_convt.conv_transpose_relu_chain`: one hand-written kernel a pair
+on a card, `F.conv_transpose2d` and `torch.relu` on the CPU. Public inputs and
+outputs are NHWC (B, H, W, 1), like the JAX package's; with one channel the
+change of layout is a free view.
 """
 
 from __future__ import annotations
@@ -24,6 +27,9 @@ from spectrogram_cube_clustering_tpu_torch.models.layers import (
     SpatialAttention,
     default_generator,
     init_weights,
+)
+from spectrogram_cube_clustering_tpu_torch.ops.cuda_convt import (
+    conv_transpose_relu_chain,
 )
 
 
@@ -98,7 +104,12 @@ class Decoder(nn.Module):
         self.decoder = nn.Sequential(*layers)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
-        return self.decoder(z).permute(0, 2, 3, 1)
+        linear, relu, unflatten, *pairs = self.decoder
+        # the ConvTranspose2d -> ReLU pairs, each ReLU fused into the kernel
+        h = conv_transpose_relu_chain(unflatten(relu(linear(z))), [
+            (m.weight, m.bias, m.stride, m.padding, m.output_padding)
+            for m in pairs[::2]])
+        return h.permute(0, 2, 3, 1)
 
 
 class AEC(nn.Module):

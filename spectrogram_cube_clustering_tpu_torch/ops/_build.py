@@ -146,6 +146,11 @@ def load_library() -> ctypes.CDLL:
                 p, p, p, p, i64, i64, i32, i32, i32, f32, p,
             ]
             lib.scc_stftl_launch.restype = i32
+            # csrc/convt.cu
+            lib.scc_convt_relu_launch.argtypes = [
+                p, p, p, p, i64, *[i32] * 13, p,
+            ]
+            lib.scc_convt_relu_launch.restype = i32
             lib.scc_cuda_error_string.argtypes = [i32]
             lib.scc_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

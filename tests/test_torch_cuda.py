@@ -1,5 +1,6 @@
 """The torch port on the card: the CUDA STFT kernel and its precision,
-interior and layout variants against their plain versions, and the serving and
+interior and layout variants, and the decoder's transposed-convolution
+kernel, against their plain versions, and the serving and
 training slices and the CLI (`build-cube`, `run-dc`) on CUDA against the
 same on the CPU.
 
@@ -33,7 +34,7 @@ from spectrogram_cube_clustering_tpu_torch.experiments import (
     stft_precision,
     stft_rawread,
 )
-from spectrogram_cube_clustering_tpu_torch.ops import cuda_stft
+from spectrogram_cube_clustering_tpu_torch.ops import cuda_convt, cuda_stft
 from spectrogram_cube_clustering_tpu_torch.ops import cuda_stft_layout as stl
 from spectrogram_cube_clustering_tpu_torch.ops import cuda_stft_variants as stv
 from spectrogram_cube_clustering_tpu_torch.signal import stft
@@ -983,3 +984,230 @@ def test_gap_statistic_on_card_matches_cpu(cuda_device):
     want = cluster.gap_statistic(z, [2, 3, 4, 5, 6], device="cpu")
     np.testing.assert_allclose(got["inertia"], want["inertia"], rtol=1e-4)
     assert np.isfinite(got["gap_g"]).all() and np.isfinite(got["gap_u"]).all()
+
+
+# ---------------------------------------------- transposed convolutions
+
+
+def _decoder_layer(hw, i, rows, device):
+    """(the i-th ConvTranspose2d of a seeded decoder at `hw` on `device`,
+    a (rows, C_in, H, W) input for it: the layers before it over seeded
+    latents, plus noise, so ReLU cuts some outputs and not others)."""
+    dec = models.AEC(input_hw=hw,
+                     generator=torch.Generator().manual_seed(i)).decoder
+    dec.to(device)
+    convs = [m for m in dec.decoder if isinstance(m, torch.nn.ConvTranspose2d)]
+    with torch.no_grad():
+        h = dec.decoder[:3](_randn((rows, 9), device, seed=i).abs())
+        for m in convs[:i]:
+            h = torch.relu(m(h))
+        h = h + 0.1 * _randn(h.shape, device, seed=i + 1)
+    return convs[i], h.contiguous()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bf16_autocast"])
+@pytest.mark.parametrize("rows", [1, 7, 512, 4096])
+@pytest.mark.parametrize("hw,i", [(hw, i) for hw in [(4, 101), (87, 100)]
+                                  for i in range(4)])
+def test_convt_kernel_matches_plain(cuda_device, hw, i, rows, dtype):
+    """Each decoder layer through the kernel against the plain version
+    (cuDNN's transposed convolution, its bias add, then relu) on the same
+    inputs. float32 (TF32 off): both sum at most 72 float32 products in
+    other orders, so within rtol 1e-5 and 1e-6 of the largest output.
+    Under bfloat16 autocast both round the float32 sum to bfloat16 before
+    the bias and again after. The kernel equals the float64 bias-free sum
+    of the same casts rounded so, bit for bit, wherever a float32 sum of
+    at most 72 products (error under 80 * 2^-24 of the sum of their
+    magnitudes) cannot reach the midpoint its first rounding turns on;
+    at the rest its first rounding may fall the other way: within that
+    error, one step of the sum and one of the output. And it lies within
+    one step (rtol 2^-7) and half a step of the largest bias-free sum of
+    the plain version, whose first rounding may fall the other way."""
+    from spectrogram_cube_clustering_tpu_torch.core import fp32_policy
+
+    fp32_policy()
+    m, x = _decoder_layer(hw, i, rows, cuda_device)
+    args = (m.weight, m.bias, m.stride, m.padding, m.output_padding)
+    geo = args[2:]
+    bf16 = dtype != "float32"
+    before = cuda_convt.LAUNCHES
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16,
+                                         enabled=bf16):
+        got = cuda_convt.conv_transpose_relu(x, *args)
+        want = torch.relu(torch.nn.functional.conv_transpose2d(
+            x, *args[:2], *geo))
+    assert cuda_convt.LAUNCHES == before + 1
+    assert got.dtype == want.dtype == (
+        torch.bfloat16 if bf16 else torch.float32)
+    assert got.shape == want.shape
+    scale = float(want.float().abs().max())
+    assert scale > 0
+    if not bf16:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6 * scale)
+        return
+    cast = [None if t is None else t.bfloat16().double() for t in args[:2]]
+    with torch.no_grad():
+        unbiased = torch.nn.functional.conv_transpose2d(
+            x.bfloat16().double(), cast[0], None, *geo)
+        slack = 80 * 2.0**-24 * torch.nn.functional.conv_transpose2d(
+            x.bfloat16().double().abs(), cast[0].abs(), None, *geo)
+        first = unbiased.bfloat16().double()
+        step = torch.ldexp(torch.ones_like(first),
+                           torch.frexp(unbiased)[1] - 8)
+        near = 0.5 * step - (unbiased - first).abs() <= slack
+        exact = (first if cast[1] is None else (
+            first + cast[1][:, None, None]).bfloat16().double()).relu()
+    assert float(near.double().mean()) < 0.1
+    assert torch.equal(got.double()[~near], exact[~near])
+    tol = slack + step + 2.0**-7 * torch.maximum(got.double().abs(),
+                                                 exact.abs())
+    assert bool(((got.double() - exact).abs() <= tol).all())
+    torch.testing.assert_close(got.float(), want.float(), rtol=2**-7,
+                               atol=2**-8 * float(unbiased.abs().max()))
+
+
+def test_convt_kernel_is_deterministic(cuda_device):
+    m, x = _decoder_layer((87, 100), 2, 512, cuda_device)
+    args = (m.weight.detach(), m.bias.detach(), m.stride, m.padding,
+            m.output_padding)
+    first = cuda_convt.convt_relu_cuda(x, *args)
+    assert all(torch.equal(cuda_convt.convt_relu_cuda(x, *args), first)
+               for _ in range(5))
+
+
+@pytest.mark.parametrize("name", ["AEC", "DEC"])
+def test_decoder_forward_launches_four_kernels(cuda_device, name):
+    model = (models.AEC(input_hw=(87, 100)) if name == "AEC"
+             else models.DEC(5, input_hw=(87, 100))).to(cuda_device)
+    x = _randn((16, 87, 100, 1), cuda_device)
+    before = cuda_convt.LAUNCHES
+    model(x)
+    with torch.no_grad():
+        model(x)
+    model.decoder(_randn((3, 9), cuda_device).abs())
+    assert cuda_convt.LAUNCHES == before + 12
+
+
+@pytest.mark.parametrize("name", ["AEC", "DEC"])
+@pytest.mark.parametrize("hw", [(4, 101), (87, 100)])
+def test_train_step_gradients_on_card_match_cpu(cuda_device, name, hw):
+    """One step's loss and gradients from the same weights and windows:
+    the card (kernel forward, cuDNN backward, float32 with TF32 off)
+    against the CPU, leaf by leaf within rtol 1e-4 and 1e-5 of the leaf's
+    largest gradient (sums in other orders)."""
+    from spectrogram_cube_clustering_tpu_torch.core import fp32_policy
+
+    fp32_policy()
+    gen = torch.Generator().manual_seed(11)
+    make = (lambda: models.AEC(input_hw=hw)) if name == "AEC" else (
+        lambda: models.DEC(5, input_hw=hw))
+    sd = (models.AEC(input_hw=hw, generator=gen) if name == "AEC"
+          else models.DEC(5, input_hw=hw, generator=gen)).state_dict()
+    x = _randn((64, *hw, 1), torch.device("cpu"), seed=12)
+    out = []
+    for dev in ("cpu", cuda_device):
+        model = make().to(dev)
+        model.load_state_dict(sd)
+        before = cuda_convt.LAUNCHES
+        if name == "AEC":
+            x_rec, _ = model(x.to(dev))
+            loss = torch.mean((x_rec - x.to(dev)) ** 2)
+        else:
+            q, x_rec, _ = model(x.to(dev))
+            loss = torch.mean((x_rec - x.to(dev)) ** 2) + q.max(1).values.mean()
+        loss.backward()
+        assert cuda_convt.LAUNCHES - before == (0 if dev == "cpu" else 4)
+        out.append((loss.item(), {n: p.grad.cpu() for n, p in
+                                  model.named_parameters()}))
+    (want_loss, want), (got_loss, got) = out
+    assert got_loss == pytest.approx(want_loss, rel=1e-5)
+    for n, g in want.items():
+        torch.testing.assert_close(got[n], g, rtol=1e-4,
+                                   atol=1e-5 * float(g.abs().max()),
+                                   msg=n)
+
+
+@pytest.mark.parametrize("name", ["AEC", "DEC"])
+def test_train_step_peak_on_card_no_higher_than_the_modules(cuda_device,
+                                                            name):
+    """`max_memory_allocated` over one 512-row step at (87, 100): the
+    kernel's route, whose autograd nodes save and free what the modules'
+    did, against the decoder's old module-by-module forward."""
+    from spectrogram_cube_clustering_tpu_torch.core import fp32_policy
+
+    fp32_policy()
+    model = (models.AEC(input_hw=(87, 100)) if name == "AEC"
+             else models.DEC(5, input_hw=(87, 100))).to(cuda_device)
+    x = _randn((512, 87, 100, 1), cuda_device)
+
+    def step():
+        out = model(x)
+        x_rec = out[0] if name == "AEC" else out[1]
+        loss = torch.mean((x_rec - x) ** 2)
+        if name == "DEC":
+            loss = loss + out[0].max(1).values.mean()
+        loss.backward()
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated()
+
+    peaks = {}
+    for route in ("kernel", "modules", "kernel"):
+        forward = (models.Decoder.forward if route == "kernel"
+                   else lambda self, z: self.decoder(z).permute(0, 2, 3, 1))
+        model.decoder.forward = forward.__get__(model.decoder)
+        step()
+        torch.cuda.reset_peak_memory_stats()
+        peaks[route] = step()
+    assert peaks["kernel"] <= peaks["modules"], peaks
+
+
+def test_decoder_eval_on_card_holds_one_layer_at_a_time(cuda_device):
+    """Under no_grad the chain frees each layer's input once its output
+    exists: a 4,096-row (87, 100) decoder forward holds at most the
+    Linear's two outputs and one layer's input and output (plus 1% and
+    4 MiB for the allocator's rounding), where keeping every layer's
+    output would hold 30% more."""
+    dec = models.AEC(input_hw=(87, 100)).decoder.to(cuda_device)
+    z = _randn((4096, 9), cuda_device)
+    with torch.no_grad():
+        sizes = [dec.decoder[:3](z).numel()]
+        h = dec.decoder[:3](z)
+        for m in dec.decoder[3::2]:
+            h = torch.relu(m(h))
+            sizes.append(h.numel())
+        del h
+        dec(z)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = dec(z)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+    assert out.shape == (4096, 87, 100, 1)
+    pair = max(a + b for a, b in zip(sizes, sizes[1:]))
+    bound = 4 * (pair + 2 * sizes[0]) * 1.01 + 4 * 2**20
+    assert peak <= bound, (peak, bound)
+    assert 4 * sum(sizes) > 1.3 * 4 * pair
+
+
+def test_convt_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
+    m, x = _decoder_layer((4, 101), 1, 8, cuda_device)
+    w, b = m.weight.detach(), m.bias.detach()
+    geo = (m.stride, m.padding, m.output_padding)
+    strided = x.transpose(2, 3).contiguous().transpose(2, 3)
+    assert not strided.is_contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_convt.convt_relu_cuda(strided, w, b, *geo)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_convt.convt_relu_cuda(x, w.transpose(2, 3).contiguous()
+                                   .transpose(2, 3), b, *geo)
+    for bad in (torch.float64, torch.float16):
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            cuda_convt.convt_relu_cuda(x.to(bad), w.to(bad), b.to(bad), *geo)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        cuda_convt.convt_relu_cuda(x.bfloat16(), w, b, *geo)
+    with pytest.raises(ValueError, match="CUDA device"):
+        cuda_convt.convt_relu_cuda(x, w.cpu(), b, *geo)
+    with pytest.raises(ValueError, match="built for"):
+        cuda_convt.convt_relu_cuda(x, w[:, :4].contiguous(), b[:4], *geo)
