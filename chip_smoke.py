@@ -31,6 +31,21 @@ the script exits non-zero:
    beside the HBM-bytes bound, and the host microseconds of a 64-row
    (4, 101) decoder forward and backward through the kernel against the
    modules (the DAS steps, where the host sets the pace);
+3c. conv: the encoder's convolution kernel (E1, `csrc/conv_enc.cu`
+   through `ops.cuda_conv`) on `Encoder`'s three Conv2d -> ReLU pairs at
+   (87, 100) with 2,048 and 4,096 rows and at (4, 101) with 64, from
+   seeded weights and inputs, both routes (a1, a2 and a3 written for
+   autograd, a3 alone without): each output against the plain chain
+   (cuDNN's `conv2d`, TF32 off, then relu) on the same card inputs and
+   against the float64 chain within rtol 1e-5 and 1e-5 of its largest
+   value, and the two routes' a3 bit-equal, and the elements that differ
+   from cuDNN's counted (none where cuDNN sums in the kernel's order, as
+   PERF.md's E1 found); then the device time
+   (CUDA-graph replay) of each route, of the plain chain and of the three
+   library calls alone, beside each route's bound (bytes or FLOPs); and
+   the backward's kernels (cuDNN's dgrad and wgrad) in the `train.step`
+   span of 2,048-row (87, 100) AEC steps, through the kernel and through
+   the modules as the encoder ran before;
 4. slice: a DEC(n_clusters=5, input_hw=(4, 101)) with seeded random
    weights behind the HTTP server (`serve_http.make_server`, micro-batched
    `DECPredictor`, fused `WaveformFrontend`), sent /healthz, /predict and
@@ -343,6 +358,14 @@ CONVT_GEOMETRIES = [((87, 100), 512), ((87, 100), 4096), ((4, 101), 64)]
 #: the kernel against cuDNN (TF32 off) on the same inputs: both sum at most
 #: 72 float32 products, in other orders; and against the float64 sum
 CONVT_RTOL, CONVT_ATOL, CONVT_F64 = 1e-5, 1e-6, 1e-6
+#: 3c: (input_hw, rows) of the encoder at which its convolution kernel is
+#: held and timed: the RIS catalog's 2,048-row steps and 4,096-row eval
+#: chunks, and the DAS windows' 64-row steps
+CONV_GEOMETRIES = [((87, 100), 2048), ((87, 100), 4096), ((4, 101), 64)]
+#: the kernel against cuDNN (TF32 off) and the float64 chain: each output
+#: sums at most 64 float32 products in another order, and a layer's
+#: rounding carries into the next
+CONV_RTOL, CONV_ATOL = 1e-5, 1e-5
 # H100 SXM data sheet: FP64 tensor-core peak (the SIMT FP64 peak is half)
 # and HBM3 bandwidth, at the 700 W limit
 FP64_PEAK = 67e12
@@ -637,6 +660,175 @@ def phase_convt(device, card, cuda_convt) -> dict:
                   f"{host['modules']:.1f}", flush=True)
             entry["host_us_das"] = host
     check(cuda_convt.LAUNCHES > before, "convt kernel launches counted")
+    entry["max_rel_err"] = worst
+    return entry
+
+
+def encoder_bound_ms(hw, rows: int, save: bool) -> tuple:
+    """(bound ms, bytes, FLOPs) of the encoder's three layers over `rows`
+    float32 rows: x read once and the outputs written once (a3 alone
+    without `save`), or the multiply-adds at the float32 peak, the
+    larger."""
+    from spectrogram_cube_clustering_tpu_torch.models.aec import (
+        encoder_conv_shapes,
+    )
+
+    shapes = encoder_conv_shapes(hw)
+    outs = [8 * h * w for h, w in shapes[1:]]
+    macs = sum(n * (1 if i == 0 else 8) * 8 for i, n in enumerate(outs))
+    nbytes = 4 * rows * (hw[0] * hw[1] + (sum(outs) if save else outs[-1]))
+    flop = 2 * rows * macs
+    return (1e3 * max(nbytes / HBM_BYTES_PER_S, flop / PIPE_PEAK["f32"]),
+            nbytes, flop)
+
+
+def backward_kernels_ms(device, steps: int = 5, rows: int = 2048) -> dict:
+    """The `train.step` span's backward kernels (cuDNN's dgrad and wgrad,
+    by name, ms a step) over `steps` `rows`-row (87, 100) AEC steps under
+    torch.profiler, through the kernel and through the modules as the
+    encoder ran before (its `nn.Sequential`, cuDNN), interleaved."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from spectrogram_cube_clustering_tpu_torch import models, train
+    from spectrogram_cube_clustering_tpu_torch.core.precision import DEFAULT
+    from spectrogram_cube_clustering_tpu_torch.train import aec as train_aec
+
+    gen = torch.Generator().manual_seed(25)
+    model = models.AEC(input_hw=(87, 100), generator=gen).to(device)
+    x = torch.randn((rows, 87, 100, 1), generator=gen).to(device)
+    mask = torch.ones(rows, device=device)
+    count = torch.tensor(float(rows), device=device)
+    sums = torch.zeros((), device=device)
+    state = train.create_train_state(model, 1e-3)
+    kernel = models.aec.Encoder.forward
+    routes = {"kernel": kernel,
+              "modules": lambda self, v: self.encoder(v.permute(0, 3, 1, 2))}
+    out = {name: {} for name in routes}
+    try:
+        for name in ("modules", "kernel", "kernel", "modules"):
+            models.aec.Encoder.forward = routes[name]
+            for _ in range(3):
+                train_aec._train_step(state, x, mask, count, DEFAULT, sums)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(steps):
+                    train_aec._train_step(state, x, mask, count, DEFAULT,
+                                          sums)
+                torch.cuda.synchronize()
+            for e in prof.key_averages():
+                us = getattr(e, "device_time_total", 0)
+                if us and ("dgrad" in e.key or "wgrad" in e.key):
+                    out[name].setdefault(e.key, []).append(us / 1e3 / steps)
+    finally:
+        models.aec.Encoder.forward = kernel
+    return {name: {k: float(np.median(v)) for k, v in kernels.items()}
+            for name, kernels in out.items()}
+
+
+def phase_conv(device, card, cuda_conv) -> dict:
+    """Phase 3c: the encoder's convolution kernel against its plain version
+    and the float64 chain on the same card inputs at CONV_GEOMETRIES, both
+    routes, then the times, then the backward's kernels by route. Returns
+    the kernels line's entry (its launches are the training phases',
+    filled in later)."""
+    import torch.nn.functional as F
+
+    from spectrogram_cube_clustering_tpu_torch import models
+
+    before, worst, entry = cuda_conv.LAUNCHES, 0.0, None
+    for hw, rows in CONV_GEOMETRIES:
+        gen = torch.Generator().manual_seed(rows + hw[0])
+        enc = models.AEC(input_hw=hw, generator=gen).encoder.to(device)
+        # NHWC windows seen as NCHW, as `Encoder.forward` sees them: cuDNN
+        # then runs its channels-last convolution, as in the modules
+        x = torch.randn((rows, *hw, 1), generator=gen).to(device).permute(
+            0, 3, 1, 2)
+        layers = [(m.weight.detach(), m.bias.detach(), m.stride, m.padding)
+                  for m in enc.encoder[0:6:2]]
+        what = f"conv {hw} x {rows}"
+        with torch.no_grad():
+            saved = cuda_conv.conv_relu_chain_cuda(x, layers, save=True)
+            (alone,) = cuda_conv.conv_relu_chain_cuda(x, layers)
+            want = cuda_conv.conv_relu_chain_plain(x, layers, save=True)
+            exact = cuda_conv.conv_relu_chain_plain(x.double(), [
+                (w.double(), b.double(), s, p) for w, b, s, p in layers],
+                save=True)
+        check(torch.equal(alone, saved[-1]), f"{what}: the routes' a3 equal")
+        unequal = [int((a != b).sum()) for a, b in zip(saved, want)]
+        gaps = []
+        for i, (got, plain, f64) in enumerate(zip(saved, want, exact)):
+            scale = float(f64.abs().max())
+            gap = float((got - plain).abs().max()) / scale
+            gap64 = float((got.double() - f64).abs().max()) / scale
+            check(scale > 0 and bool(torch.isfinite(got).all()), what)
+            check(got.shape == plain.shape, f"{what} a{i + 1} {got.shape}")
+            check(bool(torch.allclose(got, plain, rtol=CONV_RTOL,
+                                      atol=CONV_ATOL * scale)),
+                  f"{what} a{i + 1} against cuDNN: {gap:.3e} of the largest")
+            check(bool(torch.allclose(got.double(), f64, rtol=CONV_RTOL,
+                                      atol=CONV_ATOL * scale)),
+                  f"{what} a{i + 1} against float64: {gap64:.3e}")
+            gaps.append((gap, gap64))
+            worst = max(worst, gap)
+
+        def library():
+            v = x
+            for w, b, st, pd in layers:
+                v = F.conv2d(v, w, b, st, pd)
+            return v
+
+        with torch.no_grad():
+            ms = {
+                "save": graph_ms(lambda: cuda_conv.conv_relu_chain_cuda(
+                    x, layers, save=True)),
+                "no_grad": graph_ms(
+                    lambda: cuda_conv.conv_relu_chain_cuda(x, layers)),
+                "plain": graph_ms(lambda: cuda_conv.conv_relu_chain_plain(
+                    x, layers, save=True)),
+                "library": graph_ms(library),
+            }
+        bound = {route: encoder_bound_ms(hw, rows, route == "save")
+                 for route in ("save", "no_grad")}
+        print(f"{what} on {card}: elements unequal to cuDNN's by output "
+              f"{unequal}; gaps to cuDNN / float64 by output "
+              + ", ".join(f"{a:.3e} / {b:.3e}" for a, b in gaps)
+              + f"; kernel with a1, a2 saved {ms['save']:.4f} ms (bound "
+              f"{bound['save'][0]:.4f}, {bound['save'][0] / ms['save']:.1%}"
+              f"), a3 alone {ms['no_grad']:.4f} ms (bound "
+              f"{bound['no_grad'][0]:.4f}, "
+              f"{bound['no_grad'][0] / ms['no_grad']:.1%}); plain (cuDNN + "
+              f"relu) {ms['plain']:.4f} ms, library call (cuDNN) "
+              f"{ms['library']:.4f} ms; {bound['save'][1]} / "
+              f"{bound['no_grad'][1]} bytes, {bound['save'][2]:.4g} FLOP",
+              flush=True)
+        if entry is None:  # the first geometry: a 2,048-row RIS step
+            entry = {
+                "name": "conv_relu3",
+                "route": "cuda",
+                "source": "spectrogram_cube_clustering_tpu_torch/csrc/"
+                          "conv_enc.cu",
+                "replaces": None,
+                "shape": f"Encoder {hw}, {rows} rows, three layers, a1 "
+                         f"and a2 saved",
+                "ms": ms["save"],
+                "no_grad_ms": ms["no_grad"],
+                "plain_ms": ms["plain"],
+                "library_ms": ms["library"],
+                "bound_ms": bound["save"][0],
+                "no_grad_bound_ms": bound["no_grad"][0],
+                "bound_by": "bytes",
+                "unequal_to_library": unequal,
+            }
+    check(cuda_conv.LAUNCHES > before, "conv kernel launches counted")
+    back = backward_kernels_ms(device)
+    for name, kernels in back.items():
+        print(f"conv on {card}: train.step backward through the {name}, "
+              f"{sum(kernels.values()):.4f} ms a step: "
+              + "; ".join(f"{k[:60]} {v:.4f}" for k, v in
+                          sorted(kernels.items(), key=lambda kv: -kv[1])),
+              flush=True)
+    entry["backward_ms"] = {k: sum(v.values()) for k, v in back.items()}
     entry["max_rel_err"] = worst
     return entry
 
@@ -3946,6 +4138,7 @@ def main() -> int:
     )
     from spectrogram_cube_clustering_tpu_torch.ops import (
         _build,
+        cuda_conv,
         cuda_convt,
         cuda_stft,
     )
@@ -4002,6 +4195,8 @@ def main() -> int:
     # 3b. the decoder's transposed-convolution kernel against its plain
     # version
     convt_entry = phase_convt(device, card, cuda_convt)
+    # 3c. the encoder's convolution kernel against its plain version
+    conv_entry = phase_conv(device, card, cuda_conv)
 
     # 4. slice through the HTTP server
     model = models.DEC(
@@ -4088,14 +4283,20 @@ def main() -> int:
 
     # 4b. the training slice
     cuda_convt.LAUNCHES = 0  # the training phases' run starts here
+    cuda_conv.LAUNCHES = 0
     train_launches = phase_training(device, gen, card, cuda_stft,
                                     spectrogram_plain, args.seed)
     convt_launches = cuda_convt.LAUNCHES  # ... and ends here
+    conv_launches = cuda_conv.LAUNCHES
     print(f"training path: transposed-convolution kernel launches "
-          f"{convt_launches}", flush=True)
+          f"{convt_launches}, encoder convolution kernel launches "
+          f"{conv_launches}", flush=True)
     check(convt_launches > 0 and convt_launches % 4 == 0,
           f"four convt launches a decoder forward, got {convt_launches}")
+    check(conv_launches > 0, "the encoder's convolution kernel on the "
+          "training path")
     convt_entry["launches"] = convt_launches
+    conv_entry["launches"] = conv_launches
     with tempfile.TemporaryDirectory() as tmp:
         # 4c. the 5-stage CLI workflow, from a Zarr cube and a raw waveform
         wf_launches, cube_err, sources, wave_launches = phase_workflow(
@@ -4204,7 +4405,8 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": library_ms,
-    }] + variant_entries + layout_entries + [convt_entry]}), flush=True)
+    }] + variant_entries + layout_entries + [convt_entry, conv_entry]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -9,7 +9,10 @@ JAX package's `models/aec.py`; reference Cluster/networks.py:172-234).
 
 The layers are NCHW and sit in `nn.Sequential`s at the reference's indices,
 so a reference `.pt` state_dict (`encoder.encoder.<i>`, `decoder.decoder.<i>`)
-loads as it is. The decoder sends its ConvTranspose2d -> ReLU pairs through
+loads as it is. The encoder sends its three Conv2d -> ReLU pairs through
+`ops.cuda_conv.conv_relu_chain`: one hand-written launch for the three on a
+card, `F.conv2d` and `torch.relu` on the CPU. The decoder sends its
+ConvTranspose2d -> ReLU pairs through
 `ops.cuda_convt.conv_transpose_relu_chain`: one hand-written kernel a pair
 on a card, `F.conv_transpose2d` and `torch.relu` on the CPU. Public inputs and
 outputs are NHWC (B, H, W, 1), like the JAX package's; with one channel the
@@ -27,6 +30,9 @@ from spectrogram_cube_clustering_tpu_torch.models.layers import (
     SpatialAttention,
     default_generator,
     init_weights,
+)
+from spectrogram_cube_clustering_tpu_torch.ops.cuda_conv import (
+    conv_relu_chain,
 )
 from spectrogram_cube_clustering_tpu_torch.ops.cuda_convt import (
     conv_transpose_relu_chain,
@@ -73,7 +79,15 @@ class Encoder(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.encoder(x.permute(0, 3, 1, 2))
+        conv1, _, conv2, _, conv3, _, *head = self.encoder
+        # the three Conv2d -> ReLU pairs in one launch, then SpatialAttention,
+        # Flatten, Linear, ReLU
+        h = conv_relu_chain(x.permute(0, 3, 1, 2), [
+            (m.weight, m.bias, m.stride, m.padding)
+            for m in (conv1, conv2, conv3)])
+        for m in head:
+            h = m(h)
+        return h
 
 
 class Decoder(nn.Module):

@@ -151,6 +151,11 @@ def load_library() -> ctypes.CDLL:
                 p, p, p, p, i64, *[i32] * 13, p,
             ]
             lib.scc_convt_relu_launch.restype = i32
+            # csrc/conv_enc.cu
+            lib.scc_conv_relu3_launch.argtypes = [
+                *[p] * 10, i64, i32, i32, i32, i32, p,
+            ]
+            lib.scc_conv_relu3_launch.restype = i32
             lib.scc_cuda_error_string.argtypes = [i32]
             lib.scc_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
